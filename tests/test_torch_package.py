@@ -1,0 +1,236 @@
+"""Guards of the PyTorch port: what it imports, what it ships, and how it
+refuses to run a kernel path where no kernel can run."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from soccerplayershapepose_torch import _build  # noqa: E402
+from soccerplayershapepose_torch.render import band_raster as br  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "soccerplayershapepose_torch")
+MAX_FILE_BYTES = 512 * 1024
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs test files in parallel worker processes; torch's
+    intra-op threads would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the band kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def body():
+    """The synthetic SMPL mesh's template projected into a 32² image, two
+    samples (the second mirrored and shifted)."""
+    import numpy as np
+    from soccerplayershapepose_torch.smpl import synthesize_assets
+    a = synthesize_assets()
+    v = a.v_template.numpy()
+    wh = 32
+    v2d = np.stack([v[:, 0] * wh * 0.9 + wh / 2,
+                    -v[:, 1] * wh * 0.45 + wh / 2], -1)[None]
+    v2d = np.concatenate([v2d, v2d[:, :, ::-1] + 0.3]).astype(np.float32)
+    return v2d, a.faces.numpy(), wh
+
+_GUARD = r"""
+import importlib, importlib.abc, os, pkgutil, sys
+REFUSED = ("jax", "jaxlib", "flax", "optax", "soccerplayershapepose_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("the port must not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, os.getcwd())
+import soccerplayershapepose_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+"""
+
+
+def _package_files():
+    for root, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        for f in files:
+            yield os.path.join(root, f)
+
+
+def test_port_imports_nothing_of_jax():
+    out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.split()[-1]) >= 15
+
+
+@pytest.mark.parametrize("needle", ["cpp_extension", "import triton",
+                                    "import jax", "from jax",
+                                    "soccerplayershapepose_tpu import",
+                                    "soccerplayershapepose_tpu."])
+def test_port_sources_name_no_forbidden_module(needle):
+    paths = [p for p in _package_files() if p.endswith(".py")]
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    for p in paths:
+        with open(p) as f:
+            src = f.read()
+        code = "\n".join(line for line in src.splitlines()
+                         if not line.lstrip().startswith(("#", "``", "*")))
+        if needle.startswith("soccerplayershapepose_tpu"):
+            # docstrings cite the JAX counterpart by path; code never does
+            assert ("import soccerplayershapepose_tpu" not in code
+                    and "from soccerplayershapepose_tpu" not in code), p
+        else:
+            assert needle not in code, p
+
+
+def test_package_files_are_small_sources():
+    files = list(_package_files())
+    assert files
+    for p in files:
+        assert os.path.getsize(p) <= MAX_FILE_BYTES, p
+        assert os.path.splitext(p)[1] in (".py", ".cu", ".cuh"), p
+
+
+def test_launchers_refuse_cpu_tensors():
+    tri = torch.zeros(1, 8, 6)
+    r = torch.zeros(1, 1, dtype=torch.int32)
+    lo = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        br.launch_fwd(tri, r, r, r, r, lo, lo, 32, 0.1, 3.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        br.launch_bwd(tri, r, r, r, r, lo, lo, torch.zeros(1, 32, 32), 32,
+                      0.1, 3.0)
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    """On CPU tensors the wrappers compute the plain versions and count no
+    launch."""
+    tri = torch.tensor([[[2.0, 2.0, 12.0, 3.0, 6.0, 12.0]] * 8])
+    r = torch.zeros(1, 1, dtype=torch.int32)
+    lo = torch.zeros(1, 2, dtype=torch.int32)
+    br.reset_launch_counts()
+    s = br.band_raster_fwd(tri, r, r, r, r, lo, lo, 16, 0.1, 3.0)
+    torch.testing.assert_close(s, br.band_raster_fwd_plain(tri, 16, 0.1))
+    d = br.band_raster_bwd(tri, r, r, r, r, lo, lo, torch.ones(1, 16, 16), 16,
+                           0.1, 3.0)
+    assert d.shape == (1, 8, 6)
+    assert br.LAUNCHES == {"band_raster_fwd": 0, "band_raster_bwd": 0}
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_command_is_one_plain_nvcc(monkeypatch, tmp_path):
+    """One nvcc over csrc/*.cu for sm_90a into a temporary file that
+    os.replace moves into the content-hashed directory."""
+    calls = []
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n")
+    fake.chmod(0o755)
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("lib")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    lib = _build.build()
+    assert os.path.basename(lib) == "libband_raster.so"
+    assert os.listdir(os.path.dirname(lib)) == ["libband_raster.so"]
+    (cmd,) = calls
+    assert cmd[0] == str(fake)
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert [c for c in cmd if c.endswith(".cu")] == _build.sources()
+    assert _build.build() == lib and len(calls) == 1     # cached by content
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    lone = tmp_path / "chip_smoke.py"
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        lone.write_text(f.read())
+    out = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,wh", [(2, 64), (1, 128)])
+def test_kernels_match_plain_on_card(cuda_device, body, b, wh):
+    """K1 ≤ 1e-6 max abs and K2 ≤ 1e-5 relative L2 (atomics) against the
+    plain versions, and one launch counted per kernel call."""
+    v2d, faces, _ = body
+    v = torch.from_numpy(v2d[:b] * (wh / 32.0)).to(cuda_device)
+    sigma_px = 1e-5 * (wh / 2.0) ** 2
+    margin = br.support_margin(sigma_px)
+    tri, _, cymin, cymax, cxmin, cxmax, _ = br._sorted_tri_and_ranges(
+        v, torch.from_numpy(faces).to(cuda_device), br.CHUNK, True)
+    lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
+                                   br.BAND_H, margin)
+    args = (tri, cymin, cymax, cxmin, cxmax, lo, hi)
+    br.reset_launch_counts()
+    s = br.band_raster_fwd(*args, wh, sigma_px, margin)
+    assert (s - br.band_raster_fwd_plain(tri, wh, sigma_px)).abs().max() <= 1e-6
+    gs = (torch.randn_like(s) * (1 - s)).contiguous()
+    d = br.band_raster_bwd(*args, gs, wh, sigma_px, margin)
+    dp = br.band_raster_bwd_plain(tri, gs, wh, sigma_px)
+    assert (torch.linalg.vector_norm(d - dp)
+            / torch.linalg.vector_norm(dp)).item() <= 1e-5
+    assert br.LAUNCHES == {"band_raster_fwd": 1, "band_raster_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_launchers_reject_bad_tensors_on_card(cuda_device, body):
+    v2d, faces, wh = body
+    v = torch.from_numpy(v2d).to(cuda_device)
+    tri, _, cymin, cymax, cxmin, cxmax, _ = br._sorted_tri_and_ranges(
+        v, torch.from_numpy(faces).to(cuda_device), br.CHUNK, True)
+    lo, hi = br._band_chunk_bounds(cymin, cymax, wh // br.BAND_H, br.BAND_H,
+                                   3.0)
+    with pytest.raises(TypeError):
+        br.launch_fwd(tri.double(), cymin, cymax, cxmin, cxmax, lo, hi, wh,
+                      0.1, 3.0)
+    with pytest.raises(ValueError):
+        br.launch_fwd(tri, cymin, cymax, cxmin, cxmax, lo[:, :2].contiguous(),
+                      hi, wh, 0.1, 3.0)
+    with pytest.raises(ValueError):
+        br.launch_bwd(tri, cymin, cymax, cxmin, cxmax, lo, hi,
+                      torch.zeros(2, wh, wh, device=cuda_device).transpose(1, 2), wh,
+                      0.1, 3.0)
