@@ -3,18 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the band raster kernels from ``soccerplayershapepose_torch/csrc`` with
-nvcc, holds each kernel against its plain PyTorch version on the card, runs
-the single-view fit of the 22-player bench scene (512^2 targets, 256^2
-render, the full synthetic SMPL mesh, random init from seed 0) through the
-port's entry point, and times the kernels at the fit's shapes. Prints one
-JSON line per phase, then the card's ``nvidia-smi`` name and power limit,
-a ``{"kernels": [...]}`` line, and as its last line
-``{"ok": true, "device": {...}}``.
+Builds the kernels from ``soccerplayershapepose_torch/csrc`` with one nvcc
+call and drives the port's two paths on the card:
 
-Exits non-zero, printing no result, when CUDA is absent or the package is
-not beside this script; exits non-zero when any check fails or the run
-passes its wall-clock budget. Imports nothing of JAX.
+* the single-view fit of the 22-player bench scene (512^2 targets, 256^2
+  render, the full synthetic SMPL mesh, random init from seed 0), which
+  runs the band rasterizer K1/K2;
+* the held-out synthetic evaluation of the committed 18-channel regressor
+  (``weights/regressor_18ch_f16.npz``): 4 batches of 16 crops at 512^2,
+  two SMPL bodies per crop, two z-buffer passes (K3) per batch, ResNet-18 +
+  IEF, the PVE/MPJPE metrics; and ``predict_smpl`` timed at batch 128.
+
+Each kernel is held against its plain PyTorch version on the card and
+timed at its path's shapes. Prints one JSON line per phase, then the
+card's ``nvidia-smi`` name and power limit, a ``{"kernels": [...]}`` line,
+and as its last line ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, when CUDA is absent, the package is not
+beside this script or the committed weights are missing; exits non-zero
+when any check fails or the run passes its wall-clock budget. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +51,33 @@ FIT_PARAM_TOL = 1e-4      # a tenth of one Adam step at lr 1e-3
 FLOPS_PER_VISIT = {"band_raster_fwd": 73, "band_raster_bwd": 93}
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, outside the tensor cores
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
+# The synthetic evaluation, as weights/regressor_18ch_f16.json records it.
+WEIGHTS = os.path.join("weights", "regressor_18ch_f16.npz")
+RECORD = os.path.join("weights", "regressor_18ch_f16.json")
+EVAL_BATCHES, EVAL_BATCH, EVAL_WH = 4, 16, 512
+EVAL_SEED = 10_000_000
+RECORD_REL = 0.25         # PA metrics vs the record: another random stream
+EVAL_PLAIN_B = 4          # batch of the kernel-vs-plain evaluation
+EVAL_PLAIN_REL = 1e-4     # its metrics, kernel route vs plain route
+PREDICT_BATCH = 128
+PREDICT_REPS = 10
+K3_W_TOL = 1e-6           # max abs: the same fp32 steps, no contraction
+K3_ATTR_TOL = 1e-5        # max abs: sorted vs original face order
+# Where the kernel route and the dense oracle pick different faces, the
+# depths they chose may differ by at most this many ulps: a tie that the
+# kernel's z = w0·z0 + w1·z1 + (1 − w0 − w1)·z2 and the oracle's w2 = e2/area
+# break apart. Read through the depth channel, the two depths of one face
+# differ by at most 3 ulps over the 68,044 covered pixels of the 128² pass
+# (CPU, plain versions); a face missed by the pruning would differ by
+# thousands.
+K3_TIE_ULPS = 8
+K3_FLOPS_PER_VISIT = 36   # broken down in the header of csrc/zbuffer.cu
+# The two K3 passes of one evaluation batch: (batch, size, vertex scale).
+K3_SHAPES = ((EVAL_BATCH, EVAL_WH, 1.0), (EVAL_BATCH, EVAL_WH // 4, 0.25))
+# The kernel route against the dense oracle: the 128² pass at full batch,
+# the 512² pass at B=4 to keep the oracle's run short.
+K3_PARITY_SHAPES = ((EVAL_BATCH, EVAL_WH // 4, 0.25),
+                    (EVAL_PLAIN_B, EVAL_WH, 1.0))
 
 _T0 = time.time()
 
@@ -86,6 +121,69 @@ def bench_scene(b: int, seed: int = 0):
     return aa, betas, cam, sil, j2d
 
 
+def chunk_visits(cymin, cymax, cxmin, cxmax, lo, hi, img_wh, band_h,
+                 tile_w, margin):
+    """(chunk visits, chunk visits without the band and box skip) of a
+    banded kernel on these inputs: chunks in a band's [lo, hi) whose box,
+    padded by ``margin``, meets the block's tile; unpruned, every chunk
+    holding a face for every block."""
+    import torch
+    dev = cymin.device
+    n_chunks = cymin.shape[1]
+    n_bands, n_xt = lo.shape[1], -(-img_wh // tile_w)
+    c = torch.arange(n_chunks, device=dev)
+    y0 = torch.arange(n_bands, device=dev, dtype=torch.float32) * band_h
+    x0 = torch.arange(n_xt, device=dev, dtype=torch.float32) * tile_w
+    yhit = ((c >= lo[..., None]) & (c < hi[..., None])
+            & (cymax[:, None, :].float() >= (y0 - margin)[None, :, None])
+            & (cymin[:, None, :].float()
+               <= (y0 + band_h + margin)[None, :, None]))
+    xhit = ((cxmax[:, None, :].float() >= (x0 - margin)[None, :, None])
+            & (cxmin[:, None, :].float()
+               <= (x0 + tile_w + margin)[None, :, None]))
+    visits = int(torch.einsum("bnc,bxc->", yhit.float(), xhit.float()))
+    return visits, int((cymin < 10 ** 8).sum()) * n_bands * n_xt
+
+
+def roofline_ms(ops: float, bytes_moved: float):
+    """(the least time the card could take, in ms, and what bounds it):
+    fp32 operations over the fp32 peak or bytes over the memory rate,
+    whichever is larger."""
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    mem_ms = bytes_moved / PEAK_BYTES_S * 1e3
+    return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: wall ms, device-busy ms,
+    the device's idle share and the top device consumers. Device-side
+    events only: the CPU ops that launched them report the same time
+    again."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t_wall = time.time()
+        fn()
+        torch.cuda.synchronize()
+        t_wall = time.time() - t_wall
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": round(t_wall * 1e3, 3),
+            "device_busy_ms": round(busy_ms, 3),
+            "device_idle_share": (round(1 - busy_ms / (t_wall * 1e3), 4)
+                                  if busy_ms else "not measured"),
+            "top_device_ms": [[k[:60], round(v, 3)] for k, v in top]}
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -110,11 +208,21 @@ def main() -> int:
         from soccerplayershapepose_torch.smpl import (
             synthesize_assets, smpl_forward)
         from soccerplayershapepose_torch import config as cfg
+        from soccerplayershapepose_torch.convert import load_regressor_weights
+        from soccerplayershapepose_torch.pipeline import predict_smpl
+        from soccerplayershapepose_torch.render import attribute
+        from soccerplayershapepose_torch.render import zbuffer as zb
+        from soccerplayershapepose_torch.train import straps, synth
     except ImportError as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
         return 2
     import numpy as np
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isfile(os.path.join(root, WEIGHTS)):
+        print("chip_smoke: %s is missing; the evaluation needs the committed "
+              "regressor weights" % WEIGHTS, file=sys.stderr)
+        return 2
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -340,35 +448,23 @@ def main() -> int:
     check(k2_rel <= K2_TOL,
           "K2 disagrees with its plain version at the fit shape: %.3g" % k2_rel)
 
-    # (face, pixel) visits these inputs need: chunks in [lo, hi) whose padded
-    # box meets the block's tile, times faces per chunk and pixels per tile.
+    # (face, pixel) visits these inputs need: chunk visits times faces per
+    # chunk and pixels per tile.
     b, n_chunks = cymin.shape
-    n_bands, n_xt = lo.shape[1], -(-FIT_RENDER_WH // br.TILE_W)
-    c = torch.arange(n_chunks, device=dev)
-    y0 = torch.arange(n_bands, device=dev, dtype=torch.float32) * br.BAND_H
-    x0 = torch.arange(n_xt, device=dev, dtype=torch.float32) * br.TILE_W
-    yhit = ((c >= lo[..., None]) & (c < hi[..., None])
-            & (cymax[:, None, :].float() >= (y0 - margin)[None, :, None])
-            & (cymin[:, None, :].float() <= (y0 + br.BAND_H + margin)[None, :, None]))
-    xhit = ((cxmax[:, None, :].float() >= (x0 - margin)[None, :, None])
-            & (cxmin[:, None, :].float() <= (x0 + br.TILE_W + margin)[None, :, None]))
-    chunk_visits = int(torch.einsum("bnc,bxc->", yhit.float(), xhit.float()))
-    visits = chunk_visits * br.CHUNK * br.BAND_H * br.TILE_W
+    n_bands = lo.shape[1]
+    n_cv, all_chunk_visits = chunk_visits(
+        cymin, cymax, cxmin, cxmax, lo, hi, FIT_RENDER_WH, br.BAND_H,
+        br.TILE_W, margin)
+    visits = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
     f_pad = tri.shape[1]
     in_bytes = (tri.numel() * 4 + 4 * b * n_chunks * 4 + 2 * b * n_bands * 4)
     img_bytes = b * FIT_RENDER_WH * FIT_RENDER_WH * 4
     bytes_moved = {"band_raster_fwd": in_bytes + img_bytes,
                    "band_raster_bwd": in_bytes + img_bytes + b * f_pad * 6 * 4}
-    bound = {}
-    for k in k_ms:
-        ops_ms = visits * FLOPS_PER_VISIT[k] / PEAK_FP32_FLOPS * 1e3
-        mem_ms = bytes_moved[k] / PEAK_BYTES_S * 1e3
-        bound[k] = (max(ops_ms, mem_ms),
-                    "operations" if ops_ms >= mem_ms else "bytes")
-    # Without the band and box skip: every chunk holding a kept face.
-    all_chunk_visits = int((cymin < 10 ** 8).sum()) * n_bands * n_xt
+    bound = {k: roofline_ms(visits * FLOPS_PER_VISIT[k], bytes_moved[k])
+             for k in k_ms}
     emit("timing", t, b=FIT_BATCH, wh=FIT_RENDER_WH, band_h=br.BAND_H,
-         tile_w=br.TILE_W, chunk=br.CHUNK, chunk_visits=chunk_visits,
+         tile_w=br.TILE_W, chunk=br.CHUNK, chunk_visits=n_cv,
          chunk_visits_unpruned=all_chunk_visits, visits=visits,
          k1_max_abs=max_abs["band_raster_fwd"], k2_rel_l2=k2_rel,
          k2_max_abs=max_abs["band_raster_bwd"], ms=k_ms, plain_ms=plain_ms,
@@ -379,32 +475,201 @@ def main() -> int:
     # -- profile: where a fit iteration's time goes ---------------------------
     t = time.time()
     prof_iters = 3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t_wall = time.time()
-        single_view_fit(assets, init, sil, j2d,
-                        FitConfig(iters=prof_iters, render_wh=FIT_RENDER_WH),
-                        device=dev)
+    emit("profile", t, iters=prof_iters, **device_profile(
+        lambda: single_view_fit(
+            assets, init, sil, j2d,
+            FitConfig(iters=prof_iters, render_wh=FIT_RENDER_WH),
+            device=dev)))
+
+    # == The synthetic evaluation: predict half and K3 ==========================
+    model = load_regressor_weights(os.path.join(root, WEIGHTS), dev)
+    with open(os.path.join(root, RECORD)) as f:
+        record = json.load(f)
+    gen_cpu = torch.Generator().manual_seed(EVAL_SEED)
+    draws = synth.sample_crop_draws(gen_cpu, EVAL_BATCH)
+    scene = synth.crop_scene(assets, synth.draws_to(draws, dev), EVAL_WH)
+    pass_attrs = synth.pass_attributes(assets, scene["is_player"])
+
+    def k3_scene(b, scale):
+        return ((scene["verts2d"][:b] * scale).contiguous(),
+                scene["verts_z"][:b].contiguous())
+
+    def ulp(x):
+        return torch.nextafter(x, torch.full_like(x, float("inf"))) - x
+
+    # -- k3_parity: the kernel route against the dense oracle ------------------
+    # K3 itself meets its plain version at the path's two shapes in
+    # k3_timing. Here the route (K3, then the gather) meets the oracle over
+    # the faces in their original order. The depth rides along as a last
+    # attribute channel, so that wherever the two take different faces the
+    # depth each one chose is read: those pixels must be depth ties within
+    # K3_TIE_ULPS, and every other pixel agrees within K3_ATTR_TOL.
+    t = time.time()
+    rows = []
+    for b, wh, scale in K3_PARITY_SHAPES:
+        v2d, z = k3_scene(b, scale)
+        attrs = pass_attrs[0 if wh == EVAL_WH else 1][:b]
+        az = torch.cat([attrs, z[..., None]], dim=-1)
+        a_k, m_k = attribute.rasterize_attributes(v2d, z, az, scene["faces"],
+                                                  wh)
+        a_p, m_p = attribute.rasterize_attributes_plain(v2d, z, az,
+                                                        scene["faces"], wh)
+        per_px = (a_k[..., :-1] - a_p[..., :-1]).abs().amax(-1)
+        apart = per_px > K3_ATTR_TOL
+        z_k, z_p = a_k[..., -1][apart], a_p[..., -1][apart]
+        gap_ulps = (z_k - z_p).abs() / ulp(torch.maximum(z_k.abs(),
+                                                         z_p.abs()))
+        n_apart = int(apart.sum())
         torch.cuda.synchronize()
-        t_wall = time.time() - t_wall
-    # Device-side events only: the CPU ops that launched them report the
-    # same time again.
-    by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile", t, iters=prof_iters, wall_ms=round(t_wall * 1e3, 3),
-         device_busy_ms=round(busy_ms, 3),
-         device_idle_share=(round(1 - busy_ms / (t_wall * 1e3), 4)
-                            if busy_ms else "not measured"),
-         top_device_ms=[[k[:60], round(v, 3)] for k, v in top])
+        check(bool(torch.equal(m_k, m_p)),
+              "the kernel route's mask differs from the oracle's at B=%d %d^2"
+              % (b, wh))
+        check(bool((gap_ulps <= K3_TIE_ULPS).all()),
+              "the kernel route and the oracle take faces of different depth "
+              "at B=%d %d^2: gaps %s ulps" % (b, wh, gap_ulps.tolist()))
+        rows.append({"b": b, "wh": wh, "attrs": attrs.shape[-1],
+                     "covered_px": int(m_k.sum()), "px_apart": n_apart,
+                     "apart_z_route": z_k.tolist(),
+                     "apart_z_oracle": z_p.tolist(),
+                     "apart_gap_ulps": gap_ulps.tolist(),
+                     "apart_max_abs": (float(per_px[apart].max())
+                                       if n_apart else 0.0),
+                     "max_abs_elsewhere": float(per_px[~apart].max()),
+                     "coverage": float(m_k.float().mean())})
+    emit("k3_parity", t, attr_tol=K3_ATTR_TOL, tie_ulps=K3_TIE_ULPS,
+         cases=rows)
+
+    # -- predict: crop -> mesh at batch 128, warm ------------------------------
+    t = time.time()
+    crops = synth.crop_labels(assets, scene["verts2d"], scene["verts_z"],
+                              scene["faces"], scene["is_player"],
+                              scene["joints2d"], EVAL_WH)
+    reps = -(-PREDICT_BATCH // EVAL_BATCH)
+    sil = crops["silhouette"].repeat(reps, 1, 1)[:PREDICT_BATCH]
+    j2d = crops["joints2d"].repeat(reps, 1, 1)[:PREDICT_BATCH]
+    pred = predict_smpl(model, assets, sil, j2d, device=dev)
+    torch.cuda.synchronize()
+    t_pred = time.time()
+    for _ in range(PREDICT_REPS):
+        pred = predict_smpl(model, assets, sil, j2d, device=dev)
+    torch.cuda.synchronize()
+    pred_ms = (time.time() - t_pred) / PREDICT_REPS * 1e3
+    for k, v in pred._asdict().items():
+        check(v.shape[0] == PREDICT_BATCH and v.device.type == dev.type
+              and bool(torch.isfinite(v).all()), "predict: %s not finite" % k)
+    # The card against the CPU path on two crops.
+    small = predict_smpl(model, assets, sil[:2], j2d[:2], device=dev)
+    ref = predict_smpl(model.to("cpu"), assets.to("cpu"), sil[:2].cpu(),
+                       j2d[:2].cpu(), device="cpu")
+    model.to(dev)
+    pred_err = {k: float((getattr(small, k).cpu() - getattr(ref, k)).abs()
+                         .max()) for k in small._fields}
+    pred_err["joints2d_kprcnn"] /= cfg.PROXY_REP_INPUT_WH / 2.0
+    check(max(pred_err.values()) <= 1e-3,
+          "predict on the card disagrees with the CPU path: %s" % pred_err)
+    emit("predict", t, b=PREDICT_BATCH, ms_per_batch=round(pred_ms, 3),
+         crops_per_s=round(PREDICT_BATCH / pred_ms * 1e3, 1),
+         card_vs_cpu_max_abs=pred_err, nvidia_smi=smi)
+
+    # -- synth_eval: the main path of K3 ---------------------------------------
+    t = time.time()
+    res_cold = straps.evaluate_regressor(
+        model, assets, n_batches=EVAL_BATCHES, batch=EVAL_BATCH, wh=EVAL_WH,
+        seed=EVAL_SEED, device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t
+    t_eval = time.time()
+    zb.reset_launch_counts()
+    res = straps.evaluate_regressor(
+        model, assets, n_batches=EVAL_BATCHES, batch=EVAL_BATCH, wh=EVAL_WH,
+        seed=EVAL_SEED, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.time() - t_eval
+    k3_launches = zb.LAUNCHES["zbuffer_bary"]
+    check(k3_launches == 2 * EVAL_BATCHES,
+          "K3 launched %d times in %d batches" % (k3_launches, EVAL_BATCHES))
+    metrics = [k for k in record if k.endswith(("_mm", "_px"))]
+    check(len(metrics) == 9 and all(np.isfinite(res[k]) for k in metrics),
+          "evaluation metrics missing or not finite: %s" % res)
+    for k in ("mpjpe_pa_mm", "pve_pa_mm"):
+        check(abs(res[k] - record[k]) <= RECORD_REL * record[k],
+              "%s %.2f is not within %d%% of the record %.2f"
+              % (k, res[k], RECORD_REL * 100, record[k]))
+    # One small batch through the kernel route and through the plain
+    # versions on the card, with the same draws. On CUDA tensors the wrapper
+    # always launches K3, so the plain versions are swapped in here, for
+    # this comparison only.
+    d4 = [straps.RegressorDraws(synth.sample_crop_draws(
+        torch.Generator().manual_seed(EVAL_SEED + 1), EVAL_PLAIN_B), None)]
+    m_kernel = straps.evaluate_regressor(model, assets, wh=EVAL_WH,
+                                         draws=d4, device=dev)
+    synth.rasterize_attributes = attribute.rasterize_attributes_plain
+    try:
+        m_plain = straps.evaluate_regressor(model, assets, wh=EVAL_WH,
+                                            draws=d4, device=dev)
+    finally:
+        synth.rasterize_attributes = attribute.rasterize_attributes
+    plain_rel = {k: abs(m_kernel[k] - m_plain[k]) / max(abs(m_plain[k]),
+                                                        1e-12)
+                 for k in metrics}
+    check(max(plain_rel.values()) <= EVAL_PLAIN_REL,
+          "the evaluation through K3 disagrees with the plain route: %s"
+          % plain_rel)
+    emit("synth_eval", t, n_images=res["n_images"], wh=EVAL_WH,
+         wall_s=round(eval_s, 4), images_per_s=round(res["n_images"] / eval_s,
+                                                     2),
+         cold_wall_s=round(cold_s, 4), k3_launches=k3_launches,
+         repeat_max_rel=max(abs(res[k] - res_cold[k]) / abs(res_cold[k])
+                            for k in metrics),
+         metrics={k: res[k] for k in metrics},
+         record={k: record[k] for k in metrics}, record_rel_tol=RECORD_REL,
+         kernel_vs_plain_b=EVAL_PLAIN_B, kernel_vs_plain_rel=plain_rel,
+         nvidia_smi=smi)
+
+    # -- k3_timing: K3 at the evaluation's two pass shapes ---------------------
+    t = time.time()
+    k3 = []
+    for b, wh, scale in K3_SHAPES:
+        v2d, z = k3_scene(b, scale)
+        tri9, _, cymin, cymax, cxmin, cxmax, _ = zb._sorted_tri_z_and_ranges(
+            v2d, z, scene["faces"])
+        lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
+                                       br.BAND_H, zb.MARGIN)
+        args = (tri9, cymin, cymax, cxmin, cxmax, lo, hi)
+        ms, out = time_ms(lambda: zb.launch_zbuffer(*args, wh), 20)
+        p_ms, ref = time_ms(lambda: zb.rasterize_bary_plain(tri9, wh), 1,
+                            warmup=0)
+        # The kernel against its plain version: face ids and mask
+        # identical, barycentrics within K3_W_TOL.
+        same = bool(torch.equal(out[0], ref[0]))
+        w_err = max(float((out[i] - ref[i]).abs().max()) for i in (1, 2))
+        check(same and w_err <= K3_W_TOL,
+              "K3 disagrees with its plain version at the path's shape B=%d "
+              "%d^2: ids %s, w %.3g" % (b, wh, same, w_err))
+        n_cv, n_cv_all = chunk_visits(cymin, cymax, cxmin, cxmax, lo, hi,
+                                      wh, br.BAND_H, br.TILE_W, zb.MARGIN)
+        visits = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
+        n_chunks, n_bands = cymin.shape[1], lo.shape[1]
+        # Each input read once (the table, four box arrays, lo and hi), each
+        # output written once (face id, w0, w1: 12 bytes per pixel).
+        bytes_moved = (tri9.numel() * 4 + 4 * b * n_chunks * 4
+                       + 2 * b * n_bands * 4 + b * wh * wh * 12)
+        bound_ms, bound_by = roofline_ms(visits * K3_FLOPS_PER_VISIT,
+                                         bytes_moved)
+        k3.append({"b": b, "wh": wh, "ms": ms, "plain_ms": p_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "chunk_visits": n_cv, "visits": visits,
+                   "chunk_visits_unpruned": n_cv_all, "w_max_abs": w_err,
+                   "coverage": float((out[0] >= 0).float().mean())})
+    emit("k3_timing", t, flops_per_visit=K3_FLOPS_PER_VISIT, shapes=k3,
+         launches_per_eval_batch=len(K3_SHAPES), nvidia_smi=smi)
+
+    # -- eval_profile: where an evaluation's time goes -------------------------
+    t = time.time()
+    emit("eval_profile", t, **device_profile(
+        lambda: straps.evaluate_regressor(
+            model, assets, n_batches=EVAL_BATCHES, batch=EVAL_BATCH,
+            wh=EVAL_WH, seed=EVAL_SEED, device=dev)))
 
     kernels = []
     for name, line in (("band_raster_fwd", 33), ("band_raster_bwd", 475)):
@@ -417,6 +682,22 @@ def main() -> int:
             "ms": k_ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bound[name][0], "bound_by": bound[name][1],
             "library_ms": None})
+    # K3 runs once at each pass shape per batch: its times are the mean per
+    # launch over one batch's two launches; "shapes" gives each.
+    kernels.append({
+        "name": "zbuffer_bary", "route": "cuda",
+        "source": "soccerplayershapepose_torch/csrc/zbuffer.cu",
+        "replaces": "soccerplayershapepose_tpu/render/pallas_zbuffer.py:42",
+        "launches": k3_launches,
+        "max_abs_err": max(r["w_max_abs"] for r in k3),
+        "ms": sum(r["ms"] for r in k3) / len(k3),
+        "plain_ms": sum(r["plain_ms"] for r in k3) / len(k3),
+        "bound_ms": sum(r["bound_ms"] for r in k3) / len(k3),
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in k3) else "bytes",
+        "library_ms": None,
+        "shapes": [{k: r[k] for k in ("b", "wh", "ms", "plain_ms",
+                                      "bound_ms")} for r in k3]})
     check(time.time() - _T0 < BUDGET_S, "past the wall-clock budget")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 """Build the CUDA kernels with one ``nvcc`` call and load them with ctypes.
 
-``csrc/*.cu`` compile into ``_build/<content-hash>/libband_raster.so``, a
-shared library with a plain C interface. The build happens at first use.
+``csrc/*.cu`` (the band rasterizer K1/K2 and the z-buffer K3) compile into
+``_build/<content-hash>/libspt_kernels.so``, a shared library with a plain C
+interface. The build happens at first use.
 nvcc writes into a temporary file beside the target, which ``os.replace``
 then moves into place, so a build that is cut off leaves no partial library
 and no lock for a later build to wait on.
@@ -25,7 +26,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-LIB_NAME = "libband_raster.so"
+LIB_NAME = "libspt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 300
@@ -50,7 +51,7 @@ def find_nvcc() -> str:
         if os.path.isfile(path) and os.access(path, os.X_OK):
             return path
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the band raster kernels cannot be built")
+                       "the port's CUDA kernels cannot be built")
 
 
 def sources() -> list:
@@ -106,5 +107,7 @@ def load_library() -> ctypes.CDLL:
         lib.spt_band_raster_fwd.restype = i
         lib.spt_band_raster_bwd.argtypes = [p] * 9 + [i] * 6 + [f, f, p]
         lib.spt_band_raster_bwd.restype = i
+        lib.spt_zbuffer_bary.argtypes = [p] * 10 + [i] * 6 + [f, p]
+        lib.spt_zbuffer_bary.restype = i
         _LIB = lib
         return lib

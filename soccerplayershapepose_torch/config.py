@@ -1,4 +1,4 @@
-"""Constants of the single-view fit, copied from the JAX package's config.
+"""Constants of the ported stages, copied from the JAX package's config.
 
 Kept as a copy (not an import) so the port never imports the JAX package; a
 test asserts every name here equals its JAX counterpart.
@@ -36,7 +36,11 @@ EXTRA_JOINT_VERTEX_IDS = (
 
 SMPL_TO_KPRCNN_MAP = (24, 26, 25, 28, 27, 16, 17, 18, 19, 20, 21,
                       1, 2, 4, 5, 7, 8)
+ALL_JOINTS_TO_COCO_MAP = (24, 26, 25, 28, 27, 16, 17, 18, 19, 20, 21,
+                          1, 2, 4, 5, 7, 8)
 NUM_KPRCNN_JOINTS = 17
+
+HEATMAP_STD = 4                 # Gaussian sigma in px; truncated at 2·sigma
 
 # Hands and feet ends stay frozen during fitting.
 FITTING_FROZEN_BODY_JOINTS = (6, 7, 21, 22)

@@ -3,17 +3,30 @@
 The JAX package's ``SMPLAssets`` turned into numpy
 (``{k: np.asarray(v) for k, v in dataclasses.asdict(assets).items()}``) and
 a fit's initial parameters become the port's tensors, so both packages can
-compute on the same numbers. Nothing is written to disk.
+compute on the same numbers. The committed flax regressor weights
+(``weights/*.npz``, flat keys as ``train/checkpoint.py:_flatten`` writes
+them) load into :class:`SingleInputRegressor` at run time. Nothing is
+written to disk.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
+import torch
 
 from soccerplayershapepose_torch import config as cfg
 from soccerplayershapepose_torch.fit.engine import FitInit
+from soccerplayershapepose_torch.models.regressor import SingleInputRegressor
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
-from soccerplayershapepose_torch.utils.precision import as_f32
+from soccerplayershapepose_torch.utils.precision import (
+    DeviceLike, as_f32, default_device)
+
+# flax leaf name → PyTorch parameter or buffer name
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "mean": "running_mean", "var": "running_var"}
+_FLAT_KEY = re.compile(r"^(params|batch_stats)/(\w+)/(.+)/(\w+)$")
 
 
 def assets_from_numpy(d: dict, device="cpu") -> SMPLAssets:
@@ -29,3 +42,61 @@ def fit_init_from_numpy(body_pose, global_orient, betas, cam_wp,
     """(B, 23, 3, 3), (B, 1, 3, 3), (B, 10), (B, 3) arrays → ``FitInit``."""
     return FitInit(*(as_f32(np.asarray(x), device)
                      for x in (body_pose, global_orient, betas, cam_wp)))
+
+
+def _module_name(top: str, path: list) -> str:
+    """flax module path under ``ResNet_0`` / ``IEFModule_0`` → the
+    :class:`SingleInputRegressor` submodule that holds it."""
+    if top == "IEFModule_0" and len(path) == 1:
+        return "ief.fcs.%d" % int(path[0].split("_")[1])      # Dense_k
+    if top == "ResNet_0" and len(path) == 1:
+        return {"Conv_0": "encoder.conv", "BatchNorm_0": "encoder.norm"}[
+            path[0]]
+    if top == "ResNet_0" and len(path) == 2:
+        block = int(path[0].rsplit("_", 1)[1])   # BasicBlock_i, Bottleneck_i
+        kind, j = path[1].rsplit("_", 1)
+        return "encoder.blocks.%d.%s.%d" % (
+            block, {"Conv": "convs", "BatchNorm": "norms"}[kind], int(j))
+    raise KeyError("/".join([top] + path))
+
+
+def regressor_state_dict_from_flat(flat: dict) -> dict:
+    """Flat flax variables (``params/ResNet_0/Conv_0/kernel``,
+    ``batch_stats/ResNet_0/BatchNorm_0/mean``, …) → a
+    :class:`SingleInputRegressor` state dict: conv kernels HWIO → OIHW,
+    dense kernels (in, out) → (out, in), BN scale/bias/mean/var →
+    weight/bias/running_mean/running_var, everything cast to fp32."""
+    sd = {}
+    for key, arr in flat.items():
+        m = _FLAT_KEY.match(key)
+        if m is None:
+            raise KeyError("not a flat flax variable name: %r" % key)
+        _, top, path, leaf = m.groups()
+        a = np.asarray(arr, np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        name = "%s.%s" % (_module_name(top, path.split("/")), _LEAVES[leaf])
+        sd[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+def load_regressor_weights(path: str, device: DeviceLike = None
+                           ) -> SingleInputRegressor:
+    """Read a committed flax regressor npz → the regressor in eval mode on
+    ``device`` (None: the CUDA card). The input width and depth are read
+    from the weights (stem kernel's input channels; ``Bottleneck`` blocks
+    mean ResNet-50); IEF runs 3 iterations."""
+    dev = default_device(device)
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    in_channels = int(flat["params/ResNet_0/Conv_0/kernel"].shape[2])
+    layers = 50 if any("/Bottleneck_" in k for k in flat) else 18
+    model = SingleInputRegressor(in_channels=in_channels,
+                                 resnet_layers=layers)
+    missing, unexpected = model.load_state_dict(
+        regressor_state_dict_from_flat(flat), strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError("weights %s do not fit the regressor: missing %s, "
+                         "unexpected %s" % (path, missing[:5], unexpected[:5]))
+    return model.to(dev).eval()

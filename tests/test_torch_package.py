@@ -10,7 +10,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from soccerplayershapepose_torch import _build  # noqa: E402
+from soccerplayershapepose_torch.render import attribute as attr  # noqa: E402
 from soccerplayershapepose_torch.render import band_raster as br  # noqa: E402
+from soccerplayershapepose_torch.render import zbuffer as zb  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "soccerplayershapepose_torch")
@@ -30,7 +32,7 @@ def _one_torch_thread():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the band kernels have no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -80,7 +82,7 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 29
 
 
 @pytest.mark.parametrize("needle", ["cpp_extension", "import triton",
@@ -137,6 +139,38 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert br.LAUNCHES == {"band_raster_fwd": 0, "band_raster_bwd": 0}
 
 
+def test_zbuffer_launcher_refuses_cpu_tensors_and_bad_shapes():
+    tri9 = torch.zeros(1, 8, 9)
+    r = torch.zeros(1, 1, dtype=torch.int32)
+    lo = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        zb.launch_zbuffer(tri9, r, r, r, r, lo, lo, 32)
+    with pytest.raises(ValueError, match="9"):
+        zb.launch_zbuffer(torch.zeros(1, 8, 6), r, r, r, r, lo, lo, 32)
+    with pytest.raises(ValueError, match="9"):
+        zb.launch_zbuffer(torch.zeros(8, 9), r, r, r, r, lo, lo, 32)
+
+
+def test_zbuffer_wrappers_take_plain_versions_on_cpu():
+    """On CPU tensors K3's wrapper computes the plain version and counts no
+    launch; ``rasterize_attributes`` takes the plain oracle."""
+    v = torch.tensor([[[2.0, 2.0], [12.0, 3.0], [6.0, 12.0]]])
+    z = torch.ones(1, 3)
+    faces = torch.tensor([[0, 1, 2]])
+    tri9, _, cymin, cymax, cxmin, cxmax, _ = zb._sorted_tri_z_and_ranges(
+        v, z, faces)
+    lo, hi = br._band_chunk_bounds(cymin, cymax, 2, br.BAND_H, zb.MARGIN)
+    zb.reset_launch_counts()
+    fid, w0, w1 = zb.zbuffer_bary(tri9, cymin, cymax, cxmin, cxmax, lo, hi,
+                                  16)
+    pf, p0, p1 = zb.rasterize_bary_plain(tri9, 16)
+    assert torch.equal(fid, pf) and torch.equal(w0, p0) and (fid >= 0).any()
+    out, mask = attr.rasterize_attributes(v, z, torch.ones(1, 3, 2), faces, 16)
+    assert torch.equal(mask, fid >= 0)
+    assert torch.allclose(out[mask], torch.ones(1, 2))
+    assert zb.LAUNCHES == {"zbuffer_bary": 0}
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
@@ -167,12 +201,14 @@ def test_build_command_is_one_plain_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build.subprocess, "run", run)
     lib = _build.build()
-    assert os.path.basename(lib) == "libband_raster.so"
-    assert os.listdir(os.path.dirname(lib)) == ["libband_raster.so"]
+    assert os.path.basename(lib) == _build.LIB_NAME == "libspt_kernels.so"
+    assert os.listdir(os.path.dirname(lib)) == [_build.LIB_NAME]
     (cmd,) = calls
     assert cmd[0] == str(fake)
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert [c for c in cmd if c.endswith(".cu")] == _build.sources()
+    assert [os.path.basename(c) for c in _build.sources()] == [
+        "band_raster.cu", "zbuffer.cu"]
     assert _build.build() == lib and len(calls) == 1     # cached by content
 
 
@@ -234,3 +270,24 @@ def test_launchers_reject_bad_tensors_on_card(cuda_device, body):
         br.launch_bwd(tri, cymin, cymax, cxmin, cxmax, lo, hi,
                       torch.zeros(2, wh, wh, device=cuda_device).transpose(1, 2), wh,
                       0.1, 3.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,wh", [(2, 32), (1, 128)])
+def test_zbuffer_kernel_matches_plain_on_card(cuda_device, body, b, wh):
+    """K3 against its plain version: face ids and mask identical, w ≤ 1e-6
+    max abs, and one launch counted."""
+    v2d, faces, _ = body
+    v = torch.from_numpy(v2d[:b] * (wh / 32.0)).to(cuda_device)
+    z = (v[..., 0] * 0.01 + 5.0).contiguous()
+    tri9, _, cymin, cymax, cxmin, cxmax, _ = zb._sorted_tri_z_and_ranges(
+        v, z, torch.from_numpy(faces).to(cuda_device))
+    lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
+                                   br.BAND_H, zb.MARGIN)
+    zb.reset_launch_counts()
+    fid, w0, w1 = zb.zbuffer_bary(tri9, cymin, cymax, cxmin, cxmax, lo, hi,
+                                  wh)
+    pf, p0, p1 = zb.rasterize_bary_plain(tri9, wh)
+    assert torch.equal(fid, pf) and (fid >= 0).any()
+    assert (w0 - p0).abs().max() <= 1e-6 and (w1 - p1).abs().max() <= 1e-6
+    assert zb.LAUNCHES == {"zbuffer_bary": 1}
