@@ -15,9 +15,12 @@ call and drives the port's two paths on the card:
   IEF, the PVE/MPJPE metrics; and ``predict_smpl`` timed at batch 128.
 
 Each kernel is held against its plain PyTorch version on the card and
-timed at its path's shapes. Prints one JSON line per phase, then the
-card's ``nvidia-smi`` name and power limit, a ``{"kernels": [...]}`` line,
-and as its last line ``{"ok": true, "device": {...}}``.
+timed at its path's shapes. K1 and K2 also count the (face, pixel) pairs
+they evaluate, which must equal the pairs whose pixel centre lies in a
+face's box padded by the support radius; the bounds count those pairs.
+Prints one JSON line per phase, then the card's ``nvidia-smi`` name and
+power limit, a ``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent, the package is not
 beside this script or the committed weights are missing; exits non-zero
@@ -37,18 +40,21 @@ import time
 
 BUDGET_S = 900
 DEVICE = "cuda"
-PARITY_SHAPES = ((2, 128), (1, 256))   # (batch, render size)
+# (batch, render size, sigma): the fit's sigma, and the self-supervised
+# trainer's 1e-4, whose faces' supports are 3.2x wider.
+PARITY_CASES = ((2, 128, 1e-5), (1, 256, 1e-5), (1, 256, 1e-4),
+                (1, 512, 1e-4))
 FIT_ITERS = 20            # the stage runs 100; cut so the run stays short
 FIT_BATCH = 22
 FIT_RENDER_WH = 256
 PROXY_WH = 512
 SIGMA = 1e-5
 K1_TOL = 1e-6             # max abs, fp32 sums in another order
-K2_TOL = 1e-5             # relative L2, atomics sum in a run-dependent order
+K2_TOL = 1e-5             # relative L2, fp32 sums in another order
 FIT_PARAM_TOL = 1e-4      # a tenth of one Adam step at lr 1e-3
-# fp32 operations per (face, pixel) visit, counted from the kernel bodies;
+# fp32 operations per (face, pixel) pair, counted from the kernel bodies;
 # the header of csrc/band_raster.cu breaks the two counts down.
-FLOPS_PER_VISIT = {"band_raster_fwd": 73, "band_raster_bwd": 93}
+FLOPS_PER_PAIR = {"band_raster_fwd": 73, "band_raster_bwd": 93}
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, outside the tensor cores
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 # The synthetic evaluation, as weights/regressor_18ch_f16.json records it.
@@ -71,7 +77,7 @@ K3_ATTR_TOL = 1e-5        # max abs: sorted vs original face order
 # (CPU, plain versions); a face missed by the pruning would differ by
 # thousands.
 K3_TIE_ULPS = 8
-K3_FLOPS_PER_VISIT = 36   # broken down in the header of csrc/zbuffer.cu
+K3_FLOPS_PER_PAIR = 36    # broken down in the header of csrc/zbuffer.cu
 # The two K3 passes of one evaluation batch: (batch, size, vertex scale).
 K3_SHAPES = ((EVAL_BATCH, EVAL_WH, 1.0), (EVAL_BATCH, EVAL_WH // 4, 0.25))
 # The kernel route against the dense oracle: the 128² pass at full batch,
@@ -237,8 +243,12 @@ def main() -> int:
     t = time.time()
     lib_path = _build.build()
     _build.load_library()
+    # Registers, static shared memory, local (spill) bytes and resident
+    # blocks per SM of K1 and K2, as the CUDA runtime reads them from the
+    # loaded library.
+    resources = br.kernel_resources()
     emit("build", t, lib=os.path.relpath(lib_path, os.path.dirname(
-        os.path.abspath(__file__))))
+        os.path.abspath(__file__))), resources=resources)
 
     assets = synthesize_assets(device=dev)
     faces = assets.faces
@@ -256,72 +266,93 @@ def main() -> int:
                                       img_wh=PROXY_WH) * (wh / PROXY_WH)
         return v2d.contiguous().requires_grad_(grad)
 
-    def band_inputs(v2d, wh):
-        sigma_px = SIGMA * (wh / 2.0) ** 2
-        margin = br.support_margin(sigma_px)
-        tri, order, cymin, cymax, cxmin, cxmax, _ = br._sorted_tri_and_ranges(
-            v2d.detach(), faces, br.CHUNK, True)
-        lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
-                                       br.BAND_H, margin)
-        return (tri, cymin, cymax, cxmin, cxmax, lo, hi), sigma_px, margin
+    def band_inputs(v2d, wh, sigma=SIGMA):
+        sigma_px = sigma * (wh / 2.0) ** 2
+        args, _ = br.band_inputs(v2d.detach(), faces, wh, sigma_px, True)
+        return args, sigma_px, br.support_margin(sigma_px)
 
     def rel_l2(a, b):
         return float(torch.linalg.vector_norm(a - b)
                      / torch.linalg.vector_norm(b))
 
+    def pairs_evaluated(launch):
+        """The (face, pixel) pairs one counting launch of a kernel
+        evaluates."""
+        n = torch.zeros(1, dtype=torch.int64, device=dev)
+        launch(n)
+        return int(n)
+
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = PARITY_SHAPES
 
     # -- k1_parity -----------------------------------------------------------
+    # Each kernel also evaluates exactly the pairs whose pixel centre lies
+    # in the face's padded box: its own count equals support_pairs.
     t = time.time()
     rows = []
-    for b, wh in shapes:
+    for b, wh, sigma in PARITY_CASES:
         v2d = posed_verts2d(b, wh)
-        args, sigma_px, margin = band_inputs(v2d, wh)
+        args, sigma_px, margin = band_inputs(v2d, wh, sigma)
         s_k = br.launch_fwd(*args, wh, sigma_px, margin)
         s_p = br.band_raster_fwd_plain(args[0], wh, sigma_px)
         err = float((s_k - s_p).abs().max())
-        s_e = br.soft_silhouette_band(v2d, faces, wh, SIGMA, True)
+        s_e = br.soft_silhouette_band(v2d, faces, wh, sigma, True)
         s_o = softras.soft_silhouette(v2d, softras.cull_backfaces(v2d, faces),
-                                      wh, sigma=SIGMA)
+                                      wh, sigma=sigma)
         err_e = float((s_e - s_o).abs().max())
+        n_eval = pairs_evaluated(lambda n: br.launch_fwd(
+            *args, wh, sigma_px, margin, pair_count=n))
+        n_support = br.support_pairs(args[0][..., br.BOX], wh)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(s_k).all()), "K1 output not finite")
         check(err <= K1_TOL and err_e <= K1_TOL,
-              "K1 disagrees with its plain version at B=%d %d^2: %.3g / %.3g"
-              % (b, wh, err, err_e))
-        rows.append({"b": b, "wh": wh, "max_abs": err, "e2e_max_abs": err_e,
+              "K1 disagrees with its plain version at B=%d %d^2 sigma %g: "
+              "%.3g / %.3g" % (b, wh, sigma, err, err_e))
+        check(n_eval == n_support, "K1 evaluated %d pairs, the padded boxes "
+              "hold %d" % (n_eval, n_support))
+        rows.append({"b": b, "wh": wh, "sigma": sigma, "max_abs": err,
+                     "e2e_max_abs": err_e, "pairs_evaluated": n_eval,
+                     "support_pairs": n_support,
                      "coverage": float((s_k > 0.5).float().mean())})
     emit("k1_parity", t, tol=K1_TOL, cases=rows)
 
     # -- k2_parity -----------------------------------------------------------
     t = time.time()
     rows = []
-    for b, wh in shapes:
+    for b, wh, sigma in PARITY_CASES:
         v2d = posed_verts2d(b, wh, grad=True)
-        args, sigma_px, margin = band_inputs(v2d, wh)
+        args, sigma_px, margin = band_inputs(v2d, wh, sigma)
+        fc = args[0]
         gw = torch.randn((b, wh, wh), generator=gen, device=dev)
         s = br.launch_fwd(*args, wh, sigma_px, margin)
         gs = (gw * (1.0 - s)).contiguous()
-        d_k = br.launch_bwd(*args, gs, wh, sigma_px, margin)
-        d_k2 = br.launch_bwd(*args, gs, wh, sigma_px, margin)
-        d_p = br.band_raster_bwd_plain(args[0], gs, wh, sigma_px)
+        d_k = br.launch_bwd(fc, gs, wh, sigma_px)
+        d_k2 = br.launch_bwd(fc, gs, wh, sigma_px)
+        d_p = br.band_raster_bwd_plain(fc, gs, wh, sigma_px)
         err = rel_l2(d_k, d_p)
         g_e, = torch.autograd.grad(
-            (br.soft_silhouette_band(v2d, faces, wh, SIGMA, True) * gw).sum(),
+            (br.soft_silhouette_band(v2d, faces, wh, sigma, True) * gw).sum(),
             v2d)
         g_o, = torch.autograd.grad(
             (softras.soft_silhouette(v2d, softras.cull_backfaces(v2d, faces),
-                                     wh, sigma=SIGMA) * gw).sum(), v2d)
+                                     wh, sigma=sigma) * gw).sum(), v2d)
         err_e = rel_l2(g_e, g_o)
+        n_eval = pairs_evaluated(lambda n: br.launch_bwd(
+            fc, gs, wh, sigma_px, pair_count=n))
+        n_support = br.support_pairs(fc[..., br.BOX], wh)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(d_k).all()), "K2 output not finite")
         check(err <= K2_TOL and err_e <= K2_TOL,
-              "K2 disagrees with its plain version at B=%d %d^2: %.3g / %.3g"
-              % (b, wh, err, err_e))
-        rows.append({"b": b, "wh": wh, "rel_l2": err, "e2e_rel_l2": err_e,
+              "K2 disagrees with its plain version at B=%d %d^2 sigma %g: "
+              "%.3g / %.3g" % (b, wh, sigma, err, err_e))
+        # No atomics: two launches on the same inputs agree bit for bit.
+        check(torch.equal(d_k, d_k2), "K2 differs from run to run")
+        check(n_eval == n_support, "K2 evaluated %d pairs, the padded boxes "
+              "hold %d" % (n_eval, n_support))
+        rows.append({"b": b, "wh": wh, "sigma": sigma, "rel_l2": err,
+                     "e2e_rel_l2": err_e,
                      "run_to_run_rel_l2": rel_l2(d_k2, d_k),
-                     "max_abs": float((d_k - d_p).abs().max())})
+                     "max_abs": float((d_k - d_p).abs().max()),
+                     "pairs_evaluated": n_eval, "support_pairs": n_support})
     emit("k2_parity", t, tol=K2_TOL, cases=rows)
 
     # -- fit_parity: kernels on the card vs the plain path on the CPU --------
@@ -406,7 +437,7 @@ def main() -> int:
     t = time.time()
     v2d = posed_verts2d(FIT_BATCH, FIT_RENDER_WH)
     args, sigma_px, margin = band_inputs(v2d, FIT_RENDER_WH)
-    tri, cymin, cymax, cxmin, cxmax, lo, hi = args
+    fc, cymin, cymax, cxmin, cxmax, lo, hi = args
     s = br.launch_fwd(*args, FIT_RENDER_WH, sigma_px, margin)
     gw = torch.randn(s.shape, generator=gen, device=dev)
     gs = (gw * (1.0 - s)).contiguous()
@@ -426,17 +457,21 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, out
 
-    k_ms, k_out, plain_ms, plain_out = {}, {}, {}, {}
-    k_ms["band_raster_fwd"], k_out["band_raster_fwd"] = time_ms(
-        lambda: br.launch_fwd(*args, FIT_RENDER_WH, sigma_px, margin), 20)
-    k_ms["band_raster_bwd"], k_out["band_raster_bwd"] = time_ms(
-        lambda: br.launch_bwd(*args, gs, FIT_RENDER_WH, sigma_px, margin), 20)
-    plain_ms["band_raster_fwd"], plain_out["band_raster_fwd"] = time_ms(
-        lambda: br.band_raster_fwd_plain(tri, FIT_RENDER_WH, sigma_px), 1,
-        warmup=1)
-    plain_ms["band_raster_bwd"], plain_out["band_raster_bwd"] = time_ms(
-        lambda: br.band_raster_bwd_plain(tri, gs, FIT_RENDER_WH, sigma_px), 1,
-        warmup=1)
+    launch = {
+        "band_raster_fwd": lambda n=None: br.launch_fwd(
+            *args, FIT_RENDER_WH, sigma_px, margin, pair_count=n),
+        "band_raster_bwd": lambda n=None: br.launch_bwd(
+            fc, gs, FIT_RENDER_WH, sigma_px, pair_count=n)}
+    plain = {
+        "band_raster_fwd": lambda: br.band_raster_fwd_plain(
+            fc, FIT_RENDER_WH, sigma_px),
+        "band_raster_bwd": lambda: br.band_raster_bwd_plain(
+            fc, gs, FIT_RENDER_WH, sigma_px)}
+    k_ms, k_out, plain_ms, plain_out, evaluated = {}, {}, {}, {}, {}
+    for k in launch:
+        k_ms[k], k_out[k] = time_ms(launch[k], 20)
+        plain_ms[k], plain_out[k] = time_ms(plain[k], 1, warmup=1)
+        evaluated[k] = pairs_evaluated(launch[k])
     # The kernels against their plain versions at the main path's shape.
     max_abs = {k: float((k_out[k] - plain_out[k]).abs().max()) for k in k_out}
     k2_rel = rel_l2(k_out["band_raster_bwd"], plain_out["band_raster_bwd"])
@@ -448,29 +483,54 @@ def main() -> int:
     check(k2_rel <= K2_TOL,
           "K2 disagrees with its plain version at the fit shape: %.3g" % k2_rel)
 
-    # (face, pixel) visits these inputs need: chunk visits times faces per
-    # chunk and pixels per tile.
+    # The work these inputs need: the pairs whose pixel centre lies in a
+    # live face's box padded by the support radius, whatever the design.
+    # The chunk-level count (every face of a chunk that meets an 8 x 32
+    # tile, at all its pixels: the work of the first port's kernels) is
+    # kept beside it as history.
+    support = br.support_pairs(fc[..., br.BOX], FIT_RENDER_WH)
+    check(all(n == support for n in evaluated.values()),
+          "the kernels evaluated %s pairs, the padded boxes hold %d"
+          % (evaluated, support))
     b, n_chunks = cymin.shape
     n_bands = lo.shape[1]
     n_cv, all_chunk_visits = chunk_visits(
         cymin, cymax, cxmin, cxmax, lo, hi, FIT_RENDER_WH, br.BAND_H,
         br.TILE_W, margin)
-    visits = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
-    f_pad = tri.shape[1]
-    in_bytes = (tri.numel() * 4 + 4 * b * n_chunks * 4 + 2 * b * n_bands * 4)
+    visits_chunk_level = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
+    # K1's gather: every x-tile of a band tests each face of the band's
+    # [lo, hi) once.
+    k1_faces_scanned = int((hi - lo).clamp(min=0).sum()) * br.CHUNK * (
+        -(-FIT_RENDER_WH // br.TILE_W))
+    f_pad = fc.shape[1]
+    # Each input read once: the triangles (24 bytes a face; the 80-byte
+    # records are derived from them), the chunk boxes and band bounds for
+    # K1, g(1 - S) for K2; each output written once.
+    tri_bytes = b * f_pad * 6 * 4
     img_bytes = b * FIT_RENDER_WH * FIT_RENDER_WH * 4
-    bytes_moved = {"band_raster_fwd": in_bytes + img_bytes,
-                   "band_raster_bwd": in_bytes + img_bytes + b * f_pad * 6 * 4}
-    bound = {k: roofline_ms(visits * FLOPS_PER_VISIT[k], bytes_moved[k])
+    bytes_moved = {
+        "band_raster_fwd": (tri_bytes + 4 * b * n_chunks * 4
+                            + 2 * b * n_bands * 4 + img_bytes),
+        "band_raster_bwd": 2 * tri_bytes + img_bytes}
+    bound = {k: roofline_ms(support * FLOPS_PER_PAIR[k], bytes_moved[k])
              for k in k_ms}
-    emit("timing", t, b=FIT_BATCH, wh=FIT_RENDER_WH, band_h=br.BAND_H,
-         tile_w=br.TILE_W, chunk=br.CHUNK, chunk_visits=n_cv,
-         chunk_visits_unpruned=all_chunk_visits, visits=visits,
+    bound_chunk_level = {
+        k: roofline_ms(visits_chunk_level * FLOPS_PER_PAIR[k],
+                       bytes_moved[k])[0] for k in k_ms}
+    emit("timing", t, b=FIT_BATCH, wh=FIT_RENDER_WH, sigma=SIGMA,
+         band_h=br.BAND_H, tile_w=br.TILE_W, chunk=br.CHUNK,
+         support_radius_px=br.support_radius(sigma_px),
+         support_pairs=support, pairs_evaluated=evaluated,
+         chunk_visits=n_cv, chunk_visits_unpruned=all_chunk_visits,
+         visits_chunk_level=visits_chunk_level,
+         k1_faces_scanned=k1_faces_scanned,
          k1_max_abs=max_abs["band_raster_fwd"], k2_rel_l2=k2_rel,
          k2_max_abs=max_abs["band_raster_bwd"], ms=k_ms, plain_ms=plain_ms,
          bound_ms={k: v[0] for k, v in bound.items()},
+         bound_by={k: v[1] for k, v in bound.items()},
+         bound_ms_chunk_level=bound_chunk_level, bytes_moved=bytes_moved,
          launches_per_fit_iter={"band_raster_fwd": 1, "band_raster_bwd": 1},
-         nvidia_smi=smi)
+         resources=resources, nvidia_smi=smi)
 
     # -- profile: where a fit iteration's time goes ---------------------------
     t = time.time()
@@ -648,20 +708,29 @@ def main() -> int:
               "%d^2: ids %s, w %.3g" % (b, wh, same, w_err))
         n_cv, n_cv_all = chunk_visits(cymin, cymax, cxmin, cxmax, lo, hi,
                                       wh, br.BAND_H, br.TILE_W, zb.MARGIN)
-        visits = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
+        visits_chunk_level = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
+        # The work these inputs need: the pixel centres inside each face's
+        # own box (a pixel outside it cannot be covered), no margin. The
+        # kernel itself still walks the chunk-level visits.
+        k3_support = br.support_pairs(br.face_boxes(tri9[..., :6], 0.0),
+                                      wh)
         n_chunks, n_bands = cymin.shape[1], lo.shape[1]
         # Each input read once (the table, four box arrays, lo and hi), each
         # output written once (face id, w0, w1: 12 bytes per pixel).
         bytes_moved = (tri9.numel() * 4 + 4 * b * n_chunks * 4
                        + 2 * b * n_bands * 4 + b * wh * wh * 12)
-        bound_ms, bound_by = roofline_ms(visits * K3_FLOPS_PER_VISIT,
+        bound_ms, bound_by = roofline_ms(k3_support * K3_FLOPS_PER_PAIR,
                                          bytes_moved)
         k3.append({"b": b, "wh": wh, "ms": ms, "plain_ms": p_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "chunk_visits": n_cv, "visits": visits,
+                   "bound_ms_chunk_level": roofline_ms(
+                       visits_chunk_level * K3_FLOPS_PER_PAIR,
+                       bytes_moved)[0],
+                   "support_pairs": k3_support, "chunk_visits": n_cv,
+                   "visits_chunk_level": visits_chunk_level,
                    "chunk_visits_unpruned": n_cv_all, "w_max_abs": w_err,
                    "coverage": float((out[0] >= 0).float().mean())})
-    emit("k3_timing", t, flops_per_visit=K3_FLOPS_PER_VISIT, shapes=k3,
+    emit("k3_timing", t, flops_per_pair=K3_FLOPS_PER_PAIR, shapes=k3,
          launches_per_eval_batch=len(K3_SHAPES), nvidia_smi=smi)
 
     # -- eval_profile: where an evaluation's time goes -------------------------
@@ -681,7 +750,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_abs[name],
             "ms": k_ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bound[name][0], "bound_by": bound[name][1],
-            "library_ms": None})
+            "library_ms": None, "support_pairs": support,
+            "pairs_evaluated": evaluated[name],
+            "bound_ms_chunk_level": bound_chunk_level[name]})
     # K3 runs once at each pass shape per batch: its times are the mean per
     # launch over one batch's two launches; "shapes" gives each.
     kernels.append({
@@ -697,7 +768,8 @@ def main() -> int:
                                         for r in k3) else "bytes",
         "library_ms": None,
         "shapes": [{k: r[k] for k in ("b", "wh", "ms", "plain_ms",
-                                      "bound_ms")} for r in k3]})
+                                      "bound_ms", "support_pairs",
+                                      "bound_ms_chunk_level")} for r in k3]})
     check(time.time() - _T0 < BUDGET_S, "past the wall-clock budget")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

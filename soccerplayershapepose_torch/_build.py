@@ -103,10 +103,12 @@ def load_library() -> ctypes.CDLL:
             return _LIB
         lib = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.spt_band_raster_fwd.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
+        lib.spt_band_raster_fwd.argtypes = [p] * 9 + [i] * 6 + [f, f, p]
         lib.spt_band_raster_fwd.restype = i
-        lib.spt_band_raster_bwd.argtypes = [p] * 9 + [i] * 6 + [f, f, p]
+        lib.spt_band_raster_bwd.argtypes = [p] * 4 + [i] * 3 + [f, p]
         lib.spt_band_raster_bwd.restype = i
+        lib.spt_band_raster_resources.argtypes = [p]
+        lib.spt_band_raster_resources.restype = i
         lib.spt_zbuffer_bary.argtypes = [p] * 10 + [i] * 6 + [f, p]
         lib.spt_zbuffer_bary.restype = i
         _LIB = lib

@@ -7,8 +7,9 @@
   the JAX one, integers exact;
 * the kernels' plain versions, through ``SoftSilhouetteBand`` on the CPU, vs
   the Pallas kernels in interpret mode: forward ≤ 1e-5 max abs and gradient
-  ≤ 1e-5 relative L2 (the Pallas kernels multiply by a per-face reciprocal
-  where the port divides, one ulp per projection).
+  ≤ 1e-5 relative L2 (both multiply by a per-face reciprocal of |e|²; the
+  port multiplies by 1/σ where the Pallas kernels divide, and the two sum
+  in other orders).
 
 The kernels themselves against their plain versions run on a CUDA card, in
 ``test_torch_package.py`` (marker ``cuda``), which needs no JAX.
