@@ -15,9 +15,11 @@ call and drives the port's two paths on the card:
   IEF, the PVE/MPJPE metrics; and ``predict_smpl`` timed at batch 128.
 
 Each kernel is held against its plain PyTorch version on the card and
-timed at its path's shapes. K1 and K2 also count the (face, pixel) pairs
-they evaluate, which must equal the pairs whose pixel centre lies in a
-face's box padded by the support radius; the bounds count those pairs.
+timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
+it evaluates, which must equal the pairs whose pixel centre lies in a
+face's padded box (K1/K2: by the support radius; K3: by 1 px); the bounds
+count the pairs these inputs need. K2 and K3 must give the same bits from
+run to run.
 Prints one JSON line per phase, then the card's ``nvidia-smi`` name and
 power limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -244,9 +246,9 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     # Registers, static shared memory, local (spill) bytes and resident
-    # blocks per SM of K1 and K2, as the CUDA runtime reads them from the
-    # loaded library.
-    resources = br.kernel_resources()
+    # blocks per SM of K1, K2 and K3, as the CUDA runtime reads them from
+    # the loaded library.
+    resources = {**br.kernel_resources(), **zb.kernel_resources()}
     emit("build", t, lib=os.path.relpath(lib_path, os.path.dirname(
         os.path.abspath(__file__))), resources=resources)
 
@@ -695,23 +697,34 @@ def main() -> int:
             v2d, z, scene["faces"])
         lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
                                        br.BAND_H, zb.MARGIN)
-        args = (tri9, cymin, cymax, cxmin, cxmax, lo, hi)
-        ms, out = time_ms(lambda: zb.launch_zbuffer(*args, wh), 20)
+        zr = zb.face_records(tri9)
+        args = (zr, lo, hi, wh)
+        ms, out = time_ms(lambda: zb.launch_zbuffer(*args), 20)
         p_ms, ref = time_ms(lambda: zb.rasterize_bary_plain(tri9, wh), 1,
                             warmup=0)
+        again = zb.launch_zbuffer(*args)
+        n_eval = pairs_evaluated(lambda n: zb.launch_zbuffer(
+            *args, pair_count=n))
         # The kernel against its plain version: face ids and mask
-        # identical, barycentrics within K3_W_TOL.
+        # identical, barycentrics within K3_W_TOL; the order-free winner
+        # gives the same bits from run to run.
         same = bool(torch.equal(out[0], ref[0]))
         w_err = max(float((out[i] - ref[i]).abs().max()) for i in (1, 2))
         check(same and w_err <= K3_W_TOL,
               "K3 disagrees with its plain version at the path's shape B=%d "
               "%d^2: ids %s, w %.3g" % (b, wh, same, w_err))
+        check(all(torch.equal(a, c) for a, c in zip(out, again)),
+              "K3 differs from run to run at B=%d %d^2" % (b, wh))
+        # It evaluates exactly the pairs inside the faces' boxes padded by
+        # 1 px.
+        padded = br.support_pairs(zr[..., zb.BOX], wh)
+        check(n_eval == padded, "K3 evaluated %d pairs, the padded boxes "
+              "hold %d at B=%d %d^2" % (n_eval, padded, b, wh))
         n_cv, n_cv_all = chunk_visits(cymin, cymax, cxmin, cxmax, lo, hi,
                                       wh, br.BAND_H, br.TILE_W, zb.MARGIN)
         visits_chunk_level = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
         # The work these inputs need: the pixel centres inside each face's
-        # own box (a pixel outside it cannot be covered), no margin. The
-        # kernel itself still walks the chunk-level visits.
+        # own box (a pixel outside it cannot be covered), no margin.
         k3_support = br.support_pairs(br.face_boxes(tri9[..., :6], 0.0),
                                       wh)
         n_chunks, n_bands = cymin.shape[1], lo.shape[1]
@@ -726,12 +739,46 @@ def main() -> int:
                    "bound_ms_chunk_level": roofline_ms(
                        visits_chunk_level * K3_FLOPS_PER_PAIR,
                        bytes_moved)[0],
-                   "support_pairs": k3_support, "chunk_visits": n_cv,
+                   "support_pairs": k3_support, "pairs_evaluated": n_eval,
+                   "padded_box_pairs": padded,
+                   # The gather: every x-tile of a band tests each face of
+                   # the band's [lo, hi).
+                   "faces_scanned": int((hi - lo).clamp(min=0).sum())
+                   * br.CHUNK * -(-wh // zb.TILE_W),
+                   "chunk_visits": n_cv,
                    "visits_chunk_level": visits_chunk_level,
                    "chunk_visits_unpruned": n_cv_all, "w_max_abs": w_err,
+                   "w_bit_equal": all(torch.equal(out[i], ref[i])
+                                      for i in (1, 2)),
                    "coverage": float((out[0] >= 0).float().mean())})
+    # A NaN vertex and an absent occluder (+1e5 px): K3 neither hangs nor
+    # disagrees with its plain version.
+    v2d, z = k3_scene(2, 0.25)
+    absent = scene["verts2d"][:2, -1, 0] > 1e4
+    v2d = v2d.clone()
+    v2d[:, 100, 0] = float("nan")
+    tri9, _, cymin, cymax, _, _, _ = zb._sorted_tri_z_and_ranges(
+        v2d, z, scene["faces"])
+    wh = EVAL_WH // 4
+    lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
+                                   br.BAND_H, zb.MARGIN)
+    zr = zb.face_records(tri9)
+    n_eval = pairs_evaluated(lambda n: zb.launch_zbuffer(
+        zr, lo, hi, wh, pair_count=n))
+    out = zb.launch_zbuffer(zr, lo, hi, wh)
+    ref = zb.rasterize_bary_plain(tri9, wh)
+    torch.cuda.synchronize()
+    check(bool(absent.any()), "no absent occluder in the NaN-vertex case")
+    check(all(torch.equal(a, c) for a, c in zip(out, ref)),
+          "K3 disagrees with its plain version on the NaN-vertex case")
+    check(n_eval == br.support_pairs(zr[..., zb.BOX], wh),
+          "K3 evaluated %d pairs on the NaN-vertex case" % n_eval)
+    edge_case = {"b": 2, "wh": wh, "absent_occluders": int(absent.sum()),
+                 "nan_faces": int(torch.isnan(tri9[..., :6]).any(-1).sum()),
+                 "pairs_evaluated": n_eval, "bit_equal": True}
     emit("k3_timing", t, flops_per_pair=K3_FLOPS_PER_PAIR, shapes=k3,
-         launches_per_eval_batch=len(K3_SHAPES), nvidia_smi=smi)
+         nan_vertex_case=edge_case, launches_per_eval_batch=len(K3_SHAPES),
+         resources=resources["zbuffer_bary"], nvidia_smi=smi)
 
     # -- eval_profile: where an evaluation's time goes -------------------------
     t = time.time()
@@ -754,7 +801,8 @@ def main() -> int:
             "pairs_evaluated": evaluated[name],
             "bound_ms_chunk_level": bound_chunk_level[name]})
     # K3 runs once at each pass shape per batch: its times are the mean per
-    # launch over one batch's two launches; "shapes" gives each.
+    # launch over one batch's two launches, its pairs the sum over them;
+    # "shapes" gives each.
     kernels.append({
         "name": "zbuffer_bary", "route": "cuda",
         "source": "soccerplayershapepose_torch/csrc/zbuffer.cu",
@@ -767,8 +815,11 @@ def main() -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in k3) else "bytes",
         "library_ms": None,
+        "support_pairs": sum(r["support_pairs"] for r in k3),
+        "pairs_evaluated": sum(r["pairs_evaluated"] for r in k3),
         "shapes": [{k: r[k] for k in ("b", "wh", "ms", "plain_ms",
                                       "bound_ms", "support_pairs",
+                                      "pairs_evaluated",
                                       "bound_ms_chunk_level")} for r in k3]})
     check(time.time() - _T0 < BUDGET_S, "past the wall-clock budget")
     print(smi, flush=True)

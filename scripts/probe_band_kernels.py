@@ -19,7 +19,7 @@ variants with parts of the work cut out, and times each at the fit shape of
 The variants' outputs are wrong by design; only their times mean
 anything. Each is timed twice, in alternating order. Prints one JSON line
 per variant, then the card's ``nvidia-smi`` name and power limit. The
-builds go under ``soccerplayershapepose_torch/_build/probe-*``.
+builds go under ``soccerplayershapepose_torch/_build/probe-band_raster-*``.
 """
 
 from __future__ import annotations
@@ -46,24 +46,28 @@ CUTS = {
 }
 
 
-def build_variants(src: str) -> dict:
-    """{name: loaded library} for the shipped source and each cut, built by
-    parallel nvcc calls."""
+def build_variants(src: str, cu_name: str, cuts: dict, declare) -> dict:
+    """{name: loaded library} for the shipped source (``"shipped"``) and
+    each of ``cuts`` ({name: [(old, new), ...]}, each replacement applying
+    once), built by parallel nvcc calls under ``_build/probe-<stem>-<name>``;
+    ``declare(handle)`` sets each library's ctypes signatures."""
     from soccerplayershapepose_torch import _build
     nvcc = _build.find_nvcc()
     sources = {"shipped": src}
-    for name, reps in CUTS.items():
+    for name, reps in cuts.items():
         text = src
         for old, new in reps:
             if text.count(old) != 1:
                 raise RuntimeError("%s: %r does not occur once" % (name, old))
             text = text.replace(old, new)
         sources[name] = text
+    stem = os.path.splitext(cu_name)[0]
     procs = {}
     for name, text in sources.items():
-        out_dir = os.path.join(_build.BUILD_ROOT, "probe-" + name)
+        out_dir = os.path.join(_build.BUILD_ROOT,
+                               "probe-%s-%s" % (stem, name))
         os.makedirs(out_dir, exist_ok=True)
-        cu = os.path.join(out_dir, "band_raster.cu")
+        cu = os.path.join(out_dir, cu_name)
         with open(cu, "w") as f:
             f.write(text)
         lib = os.path.join(out_dir, "libprobe.so")
@@ -75,14 +79,47 @@ def build_variants(src: str) -> dict:
         out = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)[0]
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for %s:\n%s" % (name, out[-3000:]))
-        handle = ctypes.CDLL(lib)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        handle.spt_band_raster_fwd.argtypes = [p] * 9 + [i] * 6 + [f, f, p]
-        handle.spt_band_raster_fwd.restype = i
-        handle.spt_band_raster_bwd.argtypes = [p] * 4 + [i] * 3 + [f, p]
-        handle.spt_band_raster_bwd.restype = i
-        libs[name] = handle
+        libs[name] = ctypes.CDLL(lib)
+        declare(libs[name])
     return libs
+
+
+def declare_band(handle) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    handle.spt_band_raster_fwd.argtypes = [p] * 9 + [i] * 6 + [f, f, p]
+    handle.spt_band_raster_fwd.restype = i
+    handle.spt_band_raster_bwd.argtypes = [p] * 4 + [i] * 3 + [f, p]
+    handle.spt_band_raster_bwd.restype = i
+
+
+def time_alternating(runs: dict, reps: int = REPS) -> dict:
+    """{key: [ms, ms]}: each launcher of ``runs`` (returning a CUDA error
+    code) timed with CUDA events over ``reps`` launches after three warm
+    ones, twice, the second time in reverse order."""
+    import torch
+    times = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            fn = runs[key]
+            for _ in range(3):
+                if fn() != 0:
+                    raise RuntimeError("%s: launch failed" % (key,))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[key].append(start.elapsed_time(end) / reps)
+    return times
+
+
+def nvidia_smi_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
 
 
 def main() -> int:
@@ -100,7 +137,7 @@ def main() -> int:
     dev = torch.device("cuda")
     with open(os.path.join(ROOT, "soccerplayershapepose_torch", "csrc",
                            "band_raster.cu")) as f:
-        libs = build_variants(f.read())
+        libs = build_variants(f.read(), "band_raster.cu", CUTS, declare_band)
 
     b, wh = cs.FIT_BATCH, cs.FIT_RENDER_WH
     assets = synthesize_assets(device=dev)
@@ -141,28 +178,11 @@ def main() -> int:
             "k1_gather_only": fwd(libs["k1_gather_only"]),
             "k2": bwd(libs["shipped"]),
             "k2_no_arith": bwd(libs["k2_no_arith"])}
-    times = {k: [] for k in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for name in order:
-            fn = runs[name]
-            for _ in range(3):
-                if fn() != 0:
-                    raise RuntimeError("%s: launch failed" % name)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(REPS):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            times[name].append(start.elapsed_time(end) / REPS)
+    times = time_alternating(runs)
     for name, ms in times.items():
         print(json.dumps({"variant": name, "b": b, "wh": wh,
                           "sigma": cs.SIGMA, "ms": ms}), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
+    print(nvidia_smi_line(), flush=True)
     return 0
 
 

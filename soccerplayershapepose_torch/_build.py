@@ -109,7 +109,9 @@ def load_library() -> ctypes.CDLL:
         lib.spt_band_raster_bwd.restype = i
         lib.spt_band_raster_resources.argtypes = [p]
         lib.spt_band_raster_resources.restype = i
-        lib.spt_zbuffer_bary.argtypes = [p] * 10 + [i] * 6 + [f, p]
+        lib.spt_zbuffer_bary.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.spt_zbuffer_bary.restype = i
+        lib.spt_zbuffer_resources.argtypes = [p]
+        lib.spt_zbuffer_resources.restype = i
         _LIB = lib
         return lib

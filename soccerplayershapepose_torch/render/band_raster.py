@@ -111,19 +111,25 @@ def _sorted_tri_and_ranges(verts2d: torch.Tensor, faces: torch.Tensor,
     pad = n_chunks * chunk - f
     if pad:
         tri = torch.cat([tri, tri.new_full((b, pad, 6), SENTINEL)], dim=1)
-
-    def ranges(coords):
-        sent = (coords[..., 0] < -1e8)[..., None]
-        lo = torch.where(sent, torch.full_like(coords, 1e9), coords)
-        hi = torch.where(sent, torch.full_like(coords, -1e9), coords)
-        lo = torch.amin(lo.reshape(b, n_chunks, chunk * 3), dim=-1)
-        hi = torch.amax(hi.reshape(b, n_chunks, chunk * 3), dim=-1)
-        return (torch.floor(lo).to(torch.int32).contiguous(),
-                torch.ceil(hi).to(torch.int32).contiguous())
-
-    cymin, cymax = ranges(tri[..., 1::2])
-    cxmin, cxmax = ranges(tri[..., 0::2])
+    cymin, cymax = chunk_ranges(tri[..., 1::2], chunk)
+    cxmin, cxmax = chunk_ranges(tri[..., 0::2], chunk)
     return tri.contiguous(), order, cymin, cymax, cxmin, cxmax, n_chunks
+
+
+def chunk_ranges(coords: torch.Tensor, chunk: int):
+    """(B, n_chunks) int32 (floor of the least, ceil of the largest) of the
+    coordinates (B, F_pad, 3) of each chunk of ``chunk`` faces. Sentinel
+    faces and NaN coordinates take no part, so a NaN vertex cannot void its
+    chunk's box; a chunk with no other coordinate gets (1e9, -1e9), which
+    meets no band and no tile."""
+    b, f_pad, _ = coords.shape
+    skip = (coords[..., :1] < -1e8) | torch.isnan(coords)
+    lo = torch.where(skip, torch.full_like(coords, 1e9), coords)
+    hi = torch.where(skip, torch.full_like(coords, -1e9), coords)
+    lo = torch.amin(lo.reshape(b, f_pad // chunk, chunk * 3), dim=-1)
+    hi = torch.amax(hi.reshape(b, f_pad // chunk, chunk * 3), dim=-1)
+    return (torch.floor(lo).to(torch.int32).contiguous(),
+            torch.ceil(hi).to(torch.int32).contiguous())
 
 
 def _band_chunk_bounds(cymin: torch.Tensor, cymax: torch.Tensor,
@@ -176,18 +182,24 @@ def face_constants(tri: torch.Tensor, radius: float) -> torch.Tensor:
                       face_boxes(tri, radius)], -1).contiguous()
 
 
+def pixel_span(lo: torch.Tensor, hi: torch.Tensor, img_wh: int):
+    """``(first, count)`` int64 of the pixel indices in [0, img_wh) whose
+    centre lies in [lo, hi]; count 0 where that is none or a side is NaN,
+    as in the kernels."""
+    first = torch.clamp(torch.ceil(lo), min=0.0)
+    last = torch.clamp(torch.floor(hi), max=float(img_wh - 1))
+    n = torch.clamp(last - first + 1.0, min=0.0)
+    n = torch.where(lo <= hi, n, torch.zeros_like(n)).to(torch.int64)
+    return torch.nan_to_num(first).to(torch.int64), n
+
+
 def support_pairs(boxes: torch.Tensor, img_wh: int) -> int:
     """Number of (face, pixel) pairs whose pixel centre (integer x, y in
     [0, img_wh)) lies in the face's box, boxes (..., 4) [x0, x1, y0, y1]. A
     box with a NaN side holds none, as in the kernels."""
-    def span(lo, hi):
-        first = torch.clamp(torch.ceil(lo), min=0.0)
-        last = torch.clamp(torch.floor(hi), max=float(img_wh - 1))
-        n = torch.clamp(last - first + 1.0, min=0.0)
-        return torch.where(lo <= hi, n, torch.zeros_like(n)).to(torch.int64)
-
     x0, x1, y0, y1 = boxes.unbind(-1)
-    return int((span(x0, x1) * span(y0, y1)).sum())
+    return int((pixel_span(x0, x1, img_wh)[1]
+                * pixel_span(y0, y1, img_wh)[1]).sum())
 
 
 # ---------------------------------------------------------------------------

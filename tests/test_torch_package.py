@@ -141,15 +141,16 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 def test_zbuffer_launcher_refuses_cpu_tensors_and_bad_shapes():
-    tri9 = torch.zeros(1, 8, 9)
-    r = torch.zeros(1, 1, dtype=torch.int32)
+    """K3 takes the (B, F_pad, 20) face records of the sorted table, on the
+    card only."""
+    zr = zb.face_records(torch.zeros(1, 8, 9))
     lo = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        zb.launch_zbuffer(tri9, r, r, r, r, lo, lo, 32)
-    with pytest.raises(ValueError, match="9"):
-        zb.launch_zbuffer(torch.zeros(1, 8, 6), r, r, r, r, lo, lo, 32)
-    with pytest.raises(ValueError, match="9"):
-        zb.launch_zbuffer(torch.zeros(8, 9), r, r, r, r, lo, lo, 32)
+        zb.launch_zbuffer(zr, lo, lo, 32)
+    with pytest.raises(ValueError, match="20"):
+        zb.launch_zbuffer(torch.zeros(1, 8, 9), lo, lo, 32)
+    with pytest.raises(ValueError, match="20"):
+        zb.launch_zbuffer(torch.zeros(8, 20), lo, lo, 32)
 
 
 def test_zbuffer_wrappers_take_plain_versions_on_cpu():
@@ -158,12 +159,10 @@ def test_zbuffer_wrappers_take_plain_versions_on_cpu():
     v = torch.tensor([[[2.0, 2.0], [12.0, 3.0], [6.0, 12.0]]])
     z = torch.ones(1, 3)
     faces = torch.tensor([[0, 1, 2]])
-    tri9, _, cymin, cymax, cxmin, cxmax, _ = zb._sorted_tri_z_and_ranges(
-        v, z, faces)
+    tri9, _, cymin, cymax, _, _, _ = zb._sorted_tri_z_and_ranges(v, z, faces)
     lo, hi = br._band_chunk_bounds(cymin, cymax, 2, br.BAND_H, zb.MARGIN)
     zb.reset_launch_counts()
-    fid, w0, w1 = zb.zbuffer_bary(tri9, cymin, cymax, cxmin, cxmax, lo, hi,
-                                  16)
+    fid, w0, w1 = zb.zbuffer_bary(tri9, lo, hi, 16)
     pf, p0, p1 = zb.rasterize_bary_plain(tri9, 16)
     assert torch.equal(fid, pf) and torch.equal(w0, p0) and (fid >= 0).any()
     out, mask = attr.rasterize_attributes(v, z, torch.ones(1, 3, 2), faces, 16)
@@ -286,18 +285,25 @@ def test_launchers_reject_bad_tensors_on_card(cuda_device, body):
 @pytest.mark.parametrize("b,wh", [(2, 32), (1, 128)])
 def test_zbuffer_kernel_matches_plain_on_card(cuda_device, body, b, wh):
     """K3 against its plain version: face ids and mask identical, w ≤ 1e-6
-    max abs, and one launch counted."""
+    max abs, one launch counted, the same result from run to run, and
+    exactly the pairs inside the faces' padded boxes evaluated."""
     v2d, faces, _ = body
     v = torch.from_numpy(v2d[:b] * (wh / 32.0)).to(cuda_device)
     z = (v[..., 0] * 0.01 + 5.0).contiguous()
-    tri9, _, cymin, cymax, cxmin, cxmax, _ = zb._sorted_tri_z_and_ranges(
+    tri9, _, cymin, cymax, _, _, _ = zb._sorted_tri_z_and_ranges(
         v, z, torch.from_numpy(faces).to(cuda_device))
     lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
                                    br.BAND_H, zb.MARGIN)
     zb.reset_launch_counts()
-    fid, w0, w1 = zb.zbuffer_bary(tri9, cymin, cymax, cxmin, cxmax, lo, hi,
-                                  wh)
+    fid, w0, w1 = zb.zbuffer_bary(tri9, lo, hi, wh)
     pf, p0, p1 = zb.rasterize_bary_plain(tri9, wh)
     assert torch.equal(fid, pf) and (fid >= 0).any()
     assert (w0 - p0).abs().max() <= 1e-6 and (w1 - p1).abs().max() <= 1e-6
     assert zb.LAUNCHES == {"zbuffer_bary": 1}
+    # The counting launch evaluates exactly the pairs inside the padded
+    # boxes, and the order-free winner repeats bit for bit.
+    zr = zb.face_records(tri9)
+    n = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    again = zb.launch_zbuffer(zr, lo, hi, wh, pair_count=n)
+    assert all(torch.equal(a, b) for a, b in zip(again, (fid, w0, w1)))
+    assert int(n) == br.support_pairs(zr[..., zb.BOX], wh)
