@@ -12,7 +12,13 @@ call and drives the port's two paths on the card:
 * the held-out synthetic evaluation of the committed 18-channel regressor
   (``weights/regressor_18ch_f16.npz``): 4 batches of 16 crops at 512^2,
   two SMPL bodies per crop, two z-buffer passes (K3) per batch, ResNet-18 +
-  IEF, the PVE/MPJPE metrics; and ``predict_smpl`` timed at batch 128.
+  IEF, the PVE/MPJPE metrics; and ``predict_smpl`` timed at batch 128;
+* the deployment-condition evaluations: ``evaluate_regressor_e2e`` (4 x 16
+  domain-randomised RGB crops at 256^2, K3 at 256^2 and 64^2, ProxyNet
+  ``weights/proxynet_256_f16.npz`` and the extractor, the proxy from what
+  was extracted, the regressor) and ``evaluate_proxynet`` (4 x 16 crops at
+  256^2, and at 512^2 on ``weights/proxynet_512_f16.npz`` while the run
+  stays inside its budget), each held to its committed record.
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -86,6 +92,31 @@ K3_SHAPES = ((EVAL_BATCH, EVAL_WH, 1.0), (EVAL_BATCH, EVAL_WH // 4, 0.25))
 # the 512² pass at B=4 to keep the oracle's run short.
 K3_PARITY_SHAPES = ((EVAL_BATCH, EVAL_WH // 4, 0.25),
                     (EVAL_PLAIN_B, EVAL_WH, 1.0))
+# The deployment-condition evaluations, as weights/regressor_18ch_e2e.json
+# and weights/proxynet_{256,512}_f16.json record them (no flip TTA).
+E2E_RECORD = os.path.join("weights", "regressor_18ch_e2e.json")
+E2E_BATCHES, E2E_BATCH, E2E_WH = 4, 16, 256
+E2E_MAX_FAILURES = 4      # of the 64 crops; the record has 0
+PN_WEIGHTS = {wh: os.path.join("weights", "proxynet_%d_f16.npz" % wh)
+              for wh in (256, 512)}
+PN_RECORDS = {wh: os.path.join("weights", "proxynet_%d_f16.json" % wh)
+              for wh in (256, 512)}
+PN_BATCHES, PN_BATCH = 4, 16
+PN_SHAPES = (256, 512)
+PN_METRICS = ("mask_mean_iou", "kp_median_px_err", "kp_pck@0.10bbox")
+# The 512² cell runs only with this much of the budget left.
+PN_512_RESERVE_S = 240
+# ProxyNet on the card against the same module on the CPU (fp32, TF32
+# off): logits within PN_LOGIT_TOL; extracted silhouettes apart at no more
+# than PN_SIL_FRAC of the pixels; joints within PN_KP_TOL px except where
+# the heatmap's top two cells lie within 2 x PN_LOGIT_TOL.
+PN_PARITY_B = 4
+PN_LOGIT_TOL = 1e-3
+PN_SIL_FRAC = 1e-3
+PN_KP_TOL = 0.05
+PN_TIMING_REPS = 10
+# The two K3 passes of one RGB crop batch of the e2e evaluation.
+K3_RGB_SHAPES = ((E2E_BATCH, E2E_WH, 1.0), (E2E_BATCH, E2E_WH // 4, 0.25))
 
 _T0 = time.time()
 
@@ -220,17 +251,22 @@ def main() -> int:
         from soccerplayershapepose_torch.pipeline import predict_smpl
         from soccerplayershapepose_torch.render import attribute
         from soccerplayershapepose_torch.render import zbuffer as zb
-        from soccerplayershapepose_torch.train import straps, synth
+        from soccerplayershapepose_torch.train import quality, straps, synth
+        from soccerplayershapepose_torch.convert import load_proxynet_weights
+        from soccerplayershapepose_torch.pipeline.extract import (
+            ProxyExtractor)
     except ImportError as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
         return 2
     import numpy as np
     root = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isfile(os.path.join(root, WEIGHTS)):
-        print("chip_smoke: %s is missing; the evaluation needs the committed "
-              "regressor weights" % WEIGHTS, file=sys.stderr)
-        return 2
+    for path in (WEIGHTS, RECORD, E2E_RECORD, PN_WEIGHTS[256],
+                 PN_RECORDS[256]):
+        if not os.path.isfile(os.path.join(root, path)):
+            print("chip_smoke: %s is missing; the evaluations need the "
+                  "committed weights and records" % path, file=sys.stderr)
+            return 2
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -688,13 +724,15 @@ def main() -> int:
          kernel_vs_plain_b=EVAL_PLAIN_B, kernel_vs_plain_rel=plain_rel,
          nvidia_smi=smi)
 
-    # -- k3_timing: K3 at the evaluation's two pass shapes ---------------------
-    t = time.time()
-    k3 = []
-    for b, wh, scale in K3_SHAPES:
-        v2d, z = k3_scene(b, scale)
+    def k3_case(scn, b, wh, scale):
+        """K3 at one pass shape of a crop scene: timed, held against its
+        plain version (face ids and mask identical, barycentrics within
+        K3_W_TOL), the same bits run to run, and exactly the pairs inside
+        the faces' boxes padded by 1 px evaluated."""
+        v2d = (scn["verts2d"][:b] * scale).contiguous()
+        z = scn["verts_z"][:b].contiguous()
         tri9, _, cymin, cymax, cxmin, cxmax, _ = zb._sorted_tri_z_and_ranges(
-            v2d, z, scene["faces"])
+            v2d, z, scn["faces"])
         lo, hi = br._band_chunk_bounds(cymin, cymax, -(-wh // br.BAND_H),
                                        br.BAND_H, zb.MARGIN)
         zr = zb.face_records(tri9)
@@ -705,18 +743,13 @@ def main() -> int:
         again = zb.launch_zbuffer(*args)
         n_eval = pairs_evaluated(lambda n: zb.launch_zbuffer(
             *args, pair_count=n))
-        # The kernel against its plain version: face ids and mask
-        # identical, barycentrics within K3_W_TOL; the order-free winner
-        # gives the same bits from run to run.
         same = bool(torch.equal(out[0], ref[0]))
         w_err = max(float((out[i] - ref[i]).abs().max()) for i in (1, 2))
         check(same and w_err <= K3_W_TOL,
               "K3 disagrees with its plain version at the path's shape B=%d "
               "%d^2: ids %s, w %.3g" % (b, wh, same, w_err))
-        check(all(torch.equal(a, c) for a, c in zip(out, again)),
+        check(all(torch.equal(x, y) for x, y in zip(out, again)),
               "K3 differs from run to run at B=%d %d^2" % (b, wh))
-        # It evaluates exactly the pairs inside the faces' boxes padded by
-        # 1 px.
         padded = br.support_pairs(zr[..., zb.BOX], wh)
         check(n_eval == padded, "K3 evaluated %d pairs, the padded boxes "
               "hold %d at B=%d %d^2" % (n_eval, padded, b, wh))
@@ -725,8 +758,7 @@ def main() -> int:
         visits_chunk_level = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
         # The work these inputs need: the pixel centres inside each face's
         # own box (a pixel outside it cannot be covered), no margin.
-        k3_support = br.support_pairs(br.face_boxes(tri9[..., :6], 0.0),
-                                      wh)
+        k3_support = br.support_pairs(br.face_boxes(tri9[..., :6], 0.0), wh)
         n_chunks, n_bands = cymin.shape[1], lo.shape[1]
         # Each input read once (the table, four box arrays, lo and hi), each
         # output written once (face id, w0, w1: 12 bytes per pixel).
@@ -734,23 +766,27 @@ def main() -> int:
                        + 2 * b * n_bands * 4 + b * wh * wh * 12)
         bound_ms, bound_by = roofline_ms(k3_support * K3_FLOPS_PER_PAIR,
                                          bytes_moved)
-        k3.append({"b": b, "wh": wh, "ms": ms, "plain_ms": p_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bound_ms_chunk_level": roofline_ms(
-                       visits_chunk_level * K3_FLOPS_PER_PAIR,
-                       bytes_moved)[0],
-                   "support_pairs": k3_support, "pairs_evaluated": n_eval,
-                   "padded_box_pairs": padded,
-                   # The gather: every x-tile of a band tests each face of
-                   # the band's [lo, hi).
-                   "faces_scanned": int((hi - lo).clamp(min=0).sum())
-                   * br.CHUNK * -(-wh // zb.TILE_W),
-                   "chunk_visits": n_cv,
-                   "visits_chunk_level": visits_chunk_level,
-                   "chunk_visits_unpruned": n_cv_all, "w_max_abs": w_err,
-                   "w_bit_equal": all(torch.equal(out[i], ref[i])
-                                      for i in (1, 2)),
-                   "coverage": float((out[0] >= 0).float().mean())})
+        return {"b": b, "wh": wh, "ms": ms, "plain_ms": p_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms_chunk_level": roofline_ms(
+                    visits_chunk_level * K3_FLOPS_PER_PAIR, bytes_moved)[0],
+                "support_pairs": k3_support, "pairs_evaluated": n_eval,
+                "padded_box_pairs": padded,
+                # The gather: every x-tile of a band tests each face of the
+                # band's [lo, hi).
+                "faces_scanned": int((hi - lo).clamp(min=0).sum())
+                * br.CHUNK * -(-wh // zb.TILE_W),
+                "chunk_visits": n_cv,
+                "visits_chunk_level": visits_chunk_level,
+                "chunk_visits_unpruned": n_cv_all, "w_max_abs": w_err,
+                "w_bit_equal": all(torch.equal(out[i], ref[i])
+                                   for i in (1, 2)),
+                "coverage": float((out[0] >= 0).float().mean())}
+
+    # -- k3_timing: K3 at the evaluation's two pass shapes ---------------------
+    t = time.time()
+    k3 = [dict(k3_case(scene, b, wh, scale), path="synth_eval")
+          for b, wh, scale in K3_SHAPES]
     # A NaN vertex and an absent occluder (+1e5 px): K3 neither hangs nor
     # disagrees with its plain version.
     v2d, z = k3_scene(2, 0.25)
@@ -787,6 +823,200 @@ def main() -> int:
             model, assets, n_batches=EVAL_BATCHES, batch=EVAL_BATCH,
             wh=EVAL_WH, seed=EVAL_SEED, device=dev)))
 
+    # == The deployment-condition evaluations: RGB crops, ProxyNet, K3 ========
+    with open(os.path.join(root, E2E_RECORD)) as f:
+        e2e_record = json.load(f)
+    pn_nets = {256: load_proxynet_weights(os.path.join(root, PN_WEIGHTS[256]),
+                                          dev)}
+    # The first batch of the e2e evaluation: geometry from the CPU stream of
+    # evaluate_regressor, appearance from a generator on the card.
+    e2e_draws = synth.sample_crop_draws(
+        torch.Generator().manual_seed(EVAL_SEED), E2E_BATCH,
+        image_wh=E2E_WH,
+        image_gen=torch.Generator(device=dev).manual_seed(EVAL_SEED))
+    rgb = synth.render_crop_batch(assets, e2e_draws, E2E_WH, with_image=True)
+    images = straps.crop_images_u8(rgb["image"])
+    check(tuple(images.shape) == (E2E_BATCH, E2E_WH, E2E_WH, 3)
+          and bool(torch.isfinite(rgb["image"]).all()),
+          "the RGB crops are not (B, wh, wh, 3) finite values")
+
+    # -- proxynet_parity: ProxyNet on the card vs the same module on the CPU --
+    t = time.time()
+    pn_cpu = load_proxynet_weights(os.path.join(root, PN_WEIGHTS[256]), "cpu")
+    x = images[:PN_PARITY_B].permute(0, 3, 1, 2).float() / 255.0
+    with torch.no_grad():
+        out_gpu = pn_nets[256](x)
+        out_cpu = pn_cpu(x.cpu())
+    head_err = {name: float((g.cpu() - c).abs().max())
+                for name, g, c in zip(out_gpu._fields, out_gpu, out_cpu)}
+    check(max(head_err.values()) <= PN_LOGIT_TOL,
+          "ProxyNet on the card disagrees with the CPU: %s" % head_err)
+    ex_gpu = ProxyExtractor(pn_nets[256], wh=E2E_WH, device=dev)
+    ex_cpu = ProxyExtractor(pn_cpu, wh=E2E_WH, device="cpu")
+    maps_gpu = ex_gpu.forward(images[:PN_PARITY_B])
+    r_gpu = ex_gpu.pick(*maps_gpu)
+    r_cpu = ex_cpu(images[:PN_PARITY_B].cpu())
+    fails = [r[0] is None for r in r_gpu]
+    check(fails == [r[0] is None for r in r_cpu],
+          "extraction failures differ, card %s vs CPU %s"
+          % (fails, [r[0] is None for r in r_cpu]))
+    kp_logits = maps_gpu[0].cpu()
+    top2 = torch.topk(kp_logits.flatten(1, 2), 2, dim=1).values
+    kp_ties = (top2[:, 0] - top2[:, 1]) < 2 * PN_LOGIT_TOL        # (B, 17)
+    sil_apart, kp_apart, n_ties = [], [], int(kp_ties.sum())
+    for i, (g, c) in enumerate(zip(r_gpu, r_cpu)):
+        if g[0] is None:
+            continue
+        sil_apart.append(float(np.mean(g[1] != c[1])))
+        far = np.abs(g[0][:, :2] - c[0][:, :2]).max(-1) > PN_KP_TOL
+        kp_apart.append(int(far.sum()))
+        check(not (far & ~kp_ties[i].numpy()).any(),
+              "crop %d: joints %s apart by more than %g px on no near-tie"
+              % (i, np.nonzero(far)[0].tolist(), PN_KP_TOL))
+    check(all(f <= PN_SIL_FRAC for f in sil_apart),
+          "extracted silhouettes differ at %s of their pixels" % sil_apart)
+    emit("proxynet_parity", t, b=PN_PARITY_B, wh=E2E_WH,
+         logit_tol=PN_LOGIT_TOL, head_max_abs=head_err, failures=fails,
+         sil_apart_frac=sil_apart, kp_tol_px=PN_KP_TOL,
+         joints_apart=kp_apart, kp_near_ties=n_ties)
+
+    # -- proxynet_timing: the forward and the host extraction per batch -------
+    t = time.time()
+    timing = {}
+    for wh in PN_SHAPES:
+        imgs = images if wh == E2E_WH else images.repeat_interleave(
+            wh // E2E_WH, 1).repeat_interleave(wh // E2E_WH, 2)
+        xf = imgs.permute(0, 3, 1, 2).float() / 255.0
+        for flip in (False, True):
+            ex = ProxyExtractor(pn_nets[256], wh=wh, flip_tta=flip,
+                                device=dev)
+            with torch.no_grad():
+                net_ms, _ = time_ms(
+                    lambda: pn_nets[256](torch.cat([xf, xf.flip(3)])
+                                         if flip else xf), PN_TIMING_REPS)
+            fwd_ms, maps = time_ms(lambda: ex.forward(imgs), PN_TIMING_REPS)
+            t_host = time.perf_counter()
+            for _ in range(3):
+                ex.pick(*maps)
+            host_ms = (time.perf_counter() - t_host) / 3 * 1e3
+            timing["%d%s" % (wh, "_flip" if flip else "")] = {
+                "net_ms": net_ms, "extractor_forward_ms": fwd_ms,
+                "host_pick_ms": host_ms}
+    emit("proxynet_timing", t, b=E2E_BATCH, reps=PN_TIMING_REPS,
+         note="512^2 crops are the 256^2 crops upsampled 2x (nearest)",
+         per_batch=timing, nvidia_smi=smi)
+
+    # -- k3_rgb_parity: K3 at the RGB crops' two pass shapes -------------------
+    t = time.time()
+    rgb_scene = synth.crop_scene(assets, synth.draws_to(e2e_draws, dev),
+                                 E2E_WH)
+    k3_rgb = [dict(k3_case(rgb_scene, b, wh, scale), path="e2e_eval")
+              for b, wh, scale in K3_RGB_SHAPES]
+    emit("k3_rgb_parity", t, flops_per_pair=K3_FLOPS_PER_PAIR, shapes=k3_rgb,
+         nvidia_smi=smi)
+    k3 += k3_rgb
+
+    # -- e2e_eval: RGB crop -> extractor -> regressor, the new main path ------
+    t = time.time()
+    ex = ProxyExtractor(pn_nets[256], wh=E2E_WH, device=dev)
+
+    def e2e(**kw):
+        return straps.evaluate_regressor_e2e(
+            model, ex, assets, n_batches=E2E_BATCHES, batch=E2E_BATCH,
+            wh=E2E_WH, seed=EVAL_SEED, device=dev, **kw)
+
+    e2e_cold = e2e()
+    torch.cuda.synchronize()
+    cold_s = time.time() - t
+    t_e2e = time.time()
+    zb.reset_launch_counts()
+    res_e2e = e2e()
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t_e2e
+    k3_launches_e2e = zb.LAUNCHES["zbuffer_bary"]
+    check(k3_launches_e2e == 2 * E2E_BATCHES,
+          "K3 launched %d times in %d e2e batches"
+          % (k3_launches_e2e, E2E_BATCHES))
+    n_total = res_e2e["n_images"] + res_e2e["extraction_failures"]
+    check(n_total == E2E_BATCHES * E2E_BATCH
+          and res_e2e["extraction_failures"] <= E2E_MAX_FAILURES,
+          "e2e: %d failures of %d crops" % (res_e2e["extraction_failures"],
+                                            n_total))
+    check(all(np.isfinite(res_e2e[k]) for k in metrics),
+          "e2e metrics missing or not finite: %s" % res_e2e)
+    for k in ("mpjpe_pa_mm", "pve_pa_mm"):
+        check(abs(res_e2e[k] - e2e_record[k]) <= RECORD_REL * e2e_record[k],
+              "e2e %s %.2f is not within %d%% of the record %.2f"
+              % (k, res_e2e[k], RECORD_REL * 100, e2e_record[k]))
+    stage_s = {}
+    e2e(stage_times=stage_s)
+    emit("e2e_eval", t, n_images=res_e2e["n_images"],
+         extraction_failures=res_e2e["extraction_failures"], wh=E2E_WH,
+         flip_tta=False, wall_s=round(e2e_s, 4),
+         images_per_s=round(n_total / e2e_s, 2),
+         cold_wall_s=round(cold_s, 4), k3_launches=k3_launches_e2e,
+         repeat_max_rel=max(abs(res_e2e[k] - e2e_cold[k])
+                            / max(abs(e2e_cold[k]), 1e-12) for k in metrics),
+         stage_s_synchronised={k: round(v, 4) for k, v in stage_s.items()},
+         metrics={k: res_e2e[k] for k in metrics},
+         record={k: e2e_record[k] for k in metrics},
+         record_rel_tol=RECORD_REL, nvidia_smi=smi)
+
+    # -- e2e_profile: where an e2e evaluation's time goes ----------------------
+    t = time.time()
+    emit("e2e_profile", t, **device_profile(e2e))
+
+    # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
+    k3_launches_pn = {}
+    for wh in PN_SHAPES:
+        t = time.time()
+        if wh != E2E_WH and time.time() - _T0 > BUDGET_S - PN_512_RESERVE_S:
+            emit("proxynet_eval", t, wh=wh, skipped="less than %d s of the "
+                 "%d s budget left" % (PN_512_RESERVE_S, BUDGET_S))
+            continue
+        if wh not in pn_nets:
+            pn_nets[wh] = load_proxynet_weights(
+                os.path.join(root, PN_WEIGHTS[wh]), dev)
+        with open(os.path.join(root, PN_RECORDS[wh])) as f:
+            pn_record = json.load(f)
+        ex = ProxyExtractor(pn_nets[wh], wh=wh, device=dev)
+
+        def pn_eval():
+            return quality.evaluate_proxynet(ex, assets, n_batches=PN_BATCHES,
+                                             batch=PN_BATCH, wh=wh)
+
+        pn_cold = pn_eval()
+        torch.cuda.synchronize()
+        t_pn = time.time()
+        zb.reset_launch_counts()
+        res_pn = pn_eval()
+        torch.cuda.synchronize()
+        pn_s = time.time() - t_pn
+        k3_launches_pn[wh] = zb.LAUNCHES["zbuffer_bary"]
+        check(k3_launches_pn[wh] == 2 * PN_BATCHES,
+              "K3 launched %d times in %d proxynet batches at %d^2"
+              % (k3_launches_pn[wh], PN_BATCHES, wh))
+        check(res_pn["n_images"] == PN_BATCHES * PN_BATCH,
+              "proxynet eval saw %d images" % res_pn["n_images"])
+        for k in PN_METRICS:
+            check(abs(res_pn[k] - pn_record[k]) <= RECORD_REL * pn_record[k],
+                  "proxynet %d^2 %s %.4f is not within %d%% of the record "
+                  "%.4f" % (wh, k, res_pn[k], RECORD_REL * 100,
+                            pn_record[k]))
+        emit("proxynet_eval", t, wh=wh, weights=PN_WEIGHTS[wh],
+             n_images=res_pn["n_images"],
+             extraction_failures=res_pn["extraction_failures"],
+             wall_s=round(pn_s, 4),
+             images_per_s=round(res_pn["n_images"] / pn_s, 2),
+             k3_launches=k3_launches_pn[wh],
+             repeat_max_rel=max(abs(res_pn[k] - pn_cold[k])
+                                / max(abs(pn_cold[k]), 1e-12)
+                                for k in PN_METRICS),
+             metrics={k: v for k, v in res_pn.items()
+                      if isinstance(v, float)},
+             record={k: pn_record[k] for k in PN_METRICS},
+             record_rel_tol=RECORD_REL, nvidia_smi=smi)
+
     kernels = []
     for name, line in (("band_raster_fwd", 33), ("band_raster_bwd", 475)):
         kernels.append({
@@ -800,14 +1030,20 @@ def main() -> int:
             "library_ms": None, "support_pairs": support,
             "pairs_evaluated": evaluated[name],
             "bound_ms_chunk_level": bound_chunk_level[name]})
-    # K3 runs once at each pass shape per batch: its times are the mean per
-    # launch over one batch's two launches, its pairs the sum over them;
-    # "shapes" gives each.
+    # K3 runs once at each pass shape per batch, on four paths: the
+    # synthetic evaluation and ProxyNet's at 512² (512² and 128² passes),
+    # the e2e evaluation and ProxyNet's at 256² (256² and 64²). Its times
+    # are the mean per launch over the four pass shapes, its pairs the sum
+    # over them; "shapes" gives each, "launches_by_path" each path's count.
+    k3_by_path = {"synth_eval": k3_launches, "e2e_eval": k3_launches_e2e}
+    k3_by_path.update({"proxynet_eval_%d" % wh: n
+                       for wh, n in k3_launches_pn.items()})
     kernels.append({
         "name": "zbuffer_bary", "route": "cuda",
         "source": "soccerplayershapepose_torch/csrc/zbuffer.cu",
         "replaces": "soccerplayershapepose_tpu/render/pallas_zbuffer.py:42",
-        "launches": k3_launches,
+        "launches": sum(k3_by_path.values()),
+        "launches_by_path": k3_by_path,
         "max_abs_err": max(r["w_max_abs"] for r in k3),
         "ms": sum(r["ms"] for r in k3) / len(k3),
         "plain_ms": sum(r["plain_ms"] for r in k3) / len(k3),
@@ -817,7 +1053,7 @@ def main() -> int:
         "library_ms": None,
         "support_pairs": sum(r["support_pairs"] for r in k3),
         "pairs_evaluated": sum(r["pairs_evaluated"] for r in k3),
-        "shapes": [{k: r[k] for k in ("b", "wh", "ms", "plain_ms",
+        "shapes": [{k: r[k] for k in ("path", "b", "wh", "ms", "plain_ms",
                                       "bound_ms", "support_pairs",
                                       "pairs_evaluated",
                                       "bound_ms_chunk_level")} for r in k3]})

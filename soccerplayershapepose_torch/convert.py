@@ -5,8 +5,9 @@ The JAX package's ``SMPLAssets`` turned into numpy
 a fit's initial parameters become the port's tensors, so both packages can
 compute on the same numbers. The committed flax regressor weights
 (``weights/*.npz``, flat keys as ``train/checkpoint.py:_flatten`` writes
-them) load into :class:`SingleInputRegressor` at run time. Nothing is
-written to disk.
+them) load into :class:`SingleInputRegressor` and the committed ProxyNet
+weights (``weights/proxynet_*_f16.npz``) into :class:`ProxyNet` at run
+time. Nothing is written to disk.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from soccerplayershapepose_torch import config as cfg
 from soccerplayershapepose_torch.fit.engine import FitInit
+from soccerplayershapepose_torch.models.perception import ProxyNet
 from soccerplayershapepose_torch.models.regressor import SingleInputRegressor
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.utils.precision import (
@@ -98,5 +100,71 @@ def load_regressor_weights(path: str, device: DeviceLike = None
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
         raise ValueError("weights %s do not fit the regressor: missing %s, "
+                         "unexpected %s" % (path, missing[:5], unexpected[:5]))
+    return model.to(dev).eval()
+
+
+def _proxynet_module_name(top: str, path: list) -> str:
+    """flax module path of a :class:`ProxyNet` variable → the submodule
+    that holds it (``FPNTrunk_0/trunk/BasicBlock_3/Conv_1`` →
+    ``trunk.trunk.blocks.3.convs.1``, ``kp_tower/Conv_0`` →
+    ``kp_tower.convs.0``, ``FPNTrunk_0/fpn/lateral2`` →
+    ``trunk.fpn.lateral.2``, ``mask_up1`` → ``mask_up1``)."""
+    if top == "FPNTrunk_0" and path[0] == "trunk":
+        if len(path) == 2:
+            return {"Conv_0": "trunk.trunk.conv",
+                    "BatchNorm_0": "trunk.trunk.norm"}[path[1]]
+        if len(path) == 3:
+            block = int(path[1].rsplit("_", 1)[1])
+            kind, j = path[2].rsplit("_", 1)
+            return "trunk.trunk.blocks.%d.%s.%d" % (
+                block, {"Conv": "convs", "BatchNorm": "norms"}[kind], int(j))
+    if top == "FPNTrunk_0" and path[0] == "fpn" and len(path) == 2:
+        m = re.fullmatch(r"(lateral|smooth)(\d+)", path[1])
+        if m:
+            return "trunk.fpn.%s.%d" % (m.group(1), int(m.group(2)))
+    if top.endswith("_tower") and len(path) == 1:
+        return "%s.convs.%d" % (top, int(path[0].split("_")[1]))
+    raise KeyError("/".join([top] + path))
+
+
+def proxynet_state_dict_from_flat(flat: dict) -> dict:
+    """Flat flax ProxyNet variables (``params/FPNTrunk_0/trunk/Conv_0/
+    kernel``, ``params/kp_out/bias``, ``batch_stats/.../mean``, …) → a
+    :class:`ProxyNet` state dict, with the mapping of
+    :func:`regressor_state_dict_from_flat` (HWIO → OIHW, BN names),
+    float16 cast to fp32 as flax promotes it against fp32 images."""
+    sd = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if len(parts) < 3 or parts[0] not in ("params", "batch_stats") \
+                or parts[-1] not in _LEAVES:
+            raise KeyError("not a flat flax variable name: %r" % key)
+        top, path, leaf = parts[1], parts[2:-1], parts[-1]
+        name = top if not path else _proxynet_module_name(top, path)
+        a = np.asarray(arr, np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1)
+        sd["%s.%s" % (name, _LEAVES[leaf])] = torch.from_numpy(
+            np.ascontiguousarray(a))
+    return sd
+
+
+def load_proxynet_weights(path: str, device: DeviceLike = None) -> ProxyNet:
+    """Read a committed flax ProxyNet npz → the net in eval mode on
+    ``device`` (None: the CUDA card). ``with_iuv`` and the head width are
+    read from the weights; the load is strict: a missing or an unexpected
+    variable raises."""
+    dev = default_device(device)
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    channels = int(flat["params/kp_out/kernel"].shape[2])
+    model = ProxyNet(with_iuv="params/part_out/kernel" in flat,
+                     channels=channels)
+    missing, unexpected = model.load_state_dict(
+        proxynet_state_dict_from_flat(flat), strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError("weights %s do not fit ProxyNet: missing %s, "
                          "unexpected %s" % (path, missing[:5], unexpected[:5]))
     return model.to(dev).eval()

@@ -8,14 +8,22 @@ the regressor, and the reference's metric family: PVE / PVE-SC / PVE-PA,
 PVE-T / PVE-T-SC (T-pose) and MPJPE / MPJPE-SC / MPJPE-PA in mm over the
 COCO joints, and the 2-D joint error in 512² proxy pixels.
 
+:func:`evaluate_regressor_e2e` is the deployment-condition evaluation:
+domain-randomised RGB crops with occluders go through ProxyNet and the
+extractor (``pipeline/extract.py``), and the extracted silhouette and
+keypoints, not the ground truth, build the regressor's proxy; crops whose
+extraction fails are left out and counted.
+
 Randomness is explicit, as in ``train/synth.py``: samplers draw into
 NamedTuples and the batch functions are deterministic in those draws.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import time
+from typing import Callable, Iterable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
@@ -26,6 +34,7 @@ from soccerplayershapepose_torch.ops.alignment import (
 from soccerplayershapepose_torch.ops.camera import (
     orthographic_project, undo_keypoint_normalisation)
 from soccerplayershapepose_torch.ops.rotations import rot6d_to_rotmat
+from soccerplayershapepose_torch.pipeline.extract import ProxyExtractor
 from soccerplayershapepose_torch.pipeline.predict import on_device
 from soccerplayershapepose_torch.pipeline.proxy import (
     create_proxy_representation)
@@ -203,12 +212,15 @@ def evaluate_regressor(regressor: SingleInputRegressor, assets: SMPLAssets,
                        n_batches: int = 4, batch: int = 16, wh: int = 512,
                        corrupt: bool = False, seed: int = 10_000_000,
                        draws: Optional[Sequence[RegressorDraws]] = None,
-                       device: DeviceLike = None) -> dict:
+                       proxy_fn: Optional[Callable[[dict], torch.Tensor]]
+                       = None, device: DeviceLike = None) -> dict:
     """Held-out synthetic evaluation of a regressor on ``device`` (None:
     the CUDA card): the mean of each metric over ``n_batches`` batches of
     ``batch`` crops rendered at ``wh``², clean (``corrupt=False``) or under
     the training-noise model. The batches' draws come from a CPU generator
-    seeded with ``seed`` unless ``draws`` (one per batch) are given."""
+    seeded with ``seed`` unless ``draws`` (one per batch) are given.
+    ``proxy_fn`` replaces the ground-truth proxy: it maps the batch dict of
+    :func:`synth_regressor_batch` to the regressor's input."""
     dev = default_device(device)
     assets = on_device(assets, dev)
     regressor = regressor.to(dev).eval()
@@ -221,7 +233,8 @@ def evaluate_regressor(regressor: SingleInputRegressor, assets: SMPLAssets,
     for d in draws:
         b = synth_regressor_batch(assets, d, wh=wh,
                                   proxy_channels=regressor.in_channels)
-        cam_wp, pose6d, betas = regressor(b["proxy"], init)
+        proxy = b["proxy"] if proxy_fn is None else proxy_fn(b)
+        cam_wp, pose6d, betas = regressor(proxy, init)
         m = regressor_metrics(assets, cam_wp, pose6d, betas, b["target_pose"],
                               b["target_betas"], b["joints2d"])
         m = {k: float(v) for k, v in m.items()}
@@ -230,4 +243,98 @@ def evaluate_regressor(regressor: SingleInputRegressor, assets: SMPLAssets,
     out.update(n_images=int(sum(d.crop.body.cam_wp.shape[0] for d in draws)),
                eval_wh=wh,
                corrupt_eval=any(d.corruption is not None for d in draws))
+    return out
+
+
+def crop_images_u8(image: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float images → uint8, truncated as numpy's ``astype``."""
+    return torch.clamp(image * 255.0, 0, 255).to(torch.uint8)
+
+
+def _lap(times: Optional[dict], stage: str, t0: float,
+         dev: torch.device) -> float:
+    """Add the wall time since ``t0`` to ``times[stage]`` (after the
+    device's queued work) and return the time now; nothing without
+    ``times``."""
+    if times is None:
+        return t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    times[stage] = times.get(stage, 0.0) + t - t0
+    return t
+
+
+@torch.no_grad()
+def evaluate_regressor_e2e(regressor: SingleInputRegressor,
+                           extractor: ProxyExtractor, assets: SMPLAssets,
+                           n_batches: int = 4, batch: int = 16,
+                           wh: int = 256, seed: int = 10_000_000,
+                           draws: Optional[Iterable[CropDraws]] = None,
+                           stage_times: Optional[dict] = None,
+                           device: DeviceLike = None) -> dict:
+    """Deployment-condition held-out evaluation on ``device`` (None: the
+    CUDA card): RGB crops at ``wh``² (occluders, domain randomisation) →
+    ``extractor`` (on the same device) → proxy from the extracted
+    silhouette and keypoints → regressor → the metrics of
+    :func:`regressor_metrics` against the generating parameters, joints in
+    512² pixels. Crops whose extraction fails are left out and counted in
+    ``extraction_failures``; the metrics are means over the others.
+
+    The draws are ``draws`` (one per batch) or, batch by batch, the
+    geometry from a CPU generator seeded with ``seed`` (the stream of
+    :func:`evaluate_regressor`) and the appearance from a generator on
+    ``device`` seeded the same. ``stage_times``, a dict, receives the wall
+    seconds of ``synthesis``, ``proxynet`` (forward and decoders),
+    ``extraction`` (host) and ``regressor`` (proxy, regressor, metrics);
+    the device is synchronised at each stage's end to read them."""
+    dev = default_device(device)
+    if extractor.device != dev:
+        raise ValueError("the extractor runs on %s, the evaluation on %s"
+                         % (extractor.device, dev))
+    assets = on_device(assets, dev)
+    regressor = regressor.to(dev).eval()
+    if draws is None:
+        gen = torch.Generator().manual_seed(seed)
+        image_gen = torch.Generator(device=dev).manual_seed(seed)
+        draws = (sample_crop_draws(gen, batch, image_wh=wh,
+                                   image_gen=image_gen)
+                 for _ in range(n_batches))
+    init = default_initial_params(assets.mean_pose_rot6d, assets.mean_shape)
+    scale = cfg.PROXY_REP_INPUT_WH / float(wh)
+    sums: Optional[dict] = None
+    n_ok = n_fail = 0
+    t = _lap(stage_times, "synthesis", time.perf_counter(), dev)
+    for d in draws:
+        data = render_crop_batch(assets, d, wh, return_params=True,
+                                 with_image=True)
+        images = crop_images_u8(data["image"])
+        t = _lap(stage_times, "synthesis", t, dev)
+        maps = extractor.forward(images)
+        t = _lap(stage_times, "proxynet", t, dev)
+        results = extractor.pick(*maps)
+        keep = [j for j, r in enumerate(results) if r[0] is not None]
+        n_fail += len(results) - len(keep)
+        t = _lap(stage_times, "extraction", t, dev)
+        if not keep:
+            continue
+        n_ok += len(keep)
+        sil = torch.from_numpy(np.stack([results[j][1] for j in keep]))
+        kps = torch.from_numpy(np.stack([results[j][0][:, :2] for j in keep]))
+        proxy = _build_proxy(sil.to(dev), kps.to(dev), wh,
+                             regressor.in_channels)
+        idx = torch.tensor(keep, device=dev)
+        target_pose = torch.cat([data["global_orient"], data["body_pose"]],
+                                dim=1)[idx]
+        cam_wp, pose6d, betas = regressor(proxy, init)
+        m = regressor_metrics(assets, cam_wp, pose6d, betas, target_pose,
+                              data["betas"][idx], data["joints2d"][idx] * scale)
+        m = {k: float(v) * len(keep) for k, v in m.items()}
+        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+        t = _lap(stage_times, "regressor", t, dev)
+    if sums is None:
+        return {"extraction_failures": n_fail, "n_images": 0, "eval_wh": wh}
+    out = {k: v / n_ok for k, v in sums.items()}
+    out.update(n_images=n_ok, extraction_failures=n_fail, eval_wh=wh,
+               via="proxynet_extractor")
     return out

@@ -307,3 +307,31 @@ def test_zbuffer_kernel_matches_plain_on_card(cuda_device, body, b, wh):
     again = zb.launch_zbuffer(zr, lo, hi, wh, pair_count=n)
     assert all(torch.equal(a, b) for a, b in zip(again, (fid, w0, w1)))
     assert int(n) == br.support_pairs(zr[..., zb.BOX], wh)
+
+
+@pytest.mark.cuda
+def test_rgb_crops_and_extraction_repeat_on_card(cuda_device):
+    """The RGB crop branch (K3 with colour channels, the shading's vertex
+    normals gathered in a fixed order) and the extractor's forward give
+    the same bits from run to run on the card, with K3 launched twice per
+    crop batch."""
+    from soccerplayershapepose_torch.convert import load_proxynet_weights
+    from soccerplayershapepose_torch.pipeline.extract import ProxyExtractor
+    from soccerplayershapepose_torch.smpl import synthesize_assets
+    from soccerplayershapepose_torch.train import straps, synth
+    assets = synthesize_assets(device=cuda_device)
+    draws = synth.sample_crop_draws(
+        torch.Generator().manual_seed(0), 4, image_wh=256,
+        image_gen=torch.Generator(device=cuda_device).manual_seed(0))
+    zb.reset_launch_counts()
+    first = synth.render_crop_batch(assets, draws, 256, with_image=True)
+    assert zb.LAUNCHES == {"zbuffer_bary": 2}
+    again = synth.render_crop_batch(assets, draws, 256, with_image=True)
+    for k, v in first.items():
+        assert torch.equal(v, again[k]), k
+    ex = ProxyExtractor(load_proxynet_weights(
+        os.path.join(REPO, "weights", "proxynet_256_f16.npz"), cuda_device),
+        wh=256, device=cuda_device)
+    images = straps.crop_images_u8(first["image"])
+    for a, b in zip(ex.forward(images), ex.forward(images)):
+        assert (a is None and b is None) or torch.equal(a, b)
