@@ -18,7 +18,15 @@ call and drives the port's two paths on the card:
   ``weights/proxynet_256_f16.npz`` and the extractor, the proxy from what
   was extracted, the regressor) and ``evaluate_proxynet`` (4 x 16 crops at
   256^2, and at 512^2 on ``weights/proxynet_512_f16.npz`` while the run
-  stays inside its budget), each held to its committed record.
+  stays inside its budget), each held to its committed record;
+* the full-frame path: ``evaluate_detector`` on the committed
+  ``weights/detector_256x448_f16.npz`` (4 x 16 synthetic frames of 256 x
+  448, 8 players each, all z-buffered in one K3 pass at 448^2 per batch),
+  held to ``weights/detector_r4acct_baseline.json``; and
+  ``build_frame_pipeline`` (detector, box NMS, ROI align, ProxyNet
+  ``weights/proxynet_512_f16.npz`` without its IUV head, the regressor) on
+  2 synthetic frames of 512 x 896 with 22 players (K3 at 896^2), timed
+  warm, and held to the CPU on one frame.
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -117,6 +125,47 @@ PN_KP_TOL = 0.05
 PN_TIMING_REPS = 10
 # The two K3 passes of one RGB crop batch of the e2e evaluation.
 K3_RGB_SHAPES = ((E2E_BATCH, E2E_WH, 1.0), (E2E_BATCH, E2E_WH // 4, 0.25))
+# The detector's held-out evaluation, as weights/detector_r4acct_baseline
+# .json records it (scripts/quality_record.py cell detector_hard: 4 x 16
+# frames of 256 x 448, 8 players, no flip TTA, ignore below fill 0.12).
+DET_WEIGHTS = os.path.join("weights", "detector_256x448_f16.npz")
+DET_RECORD = os.path.join("weights", "detector_r4acct_baseline.json")
+DET_BATCHES, DET_BATCH, DET_HW, DET_PLAYERS = 4, 16, (256, 448), 8
+DET_METRICS = ("ap@0.5", "recall@score0.7", "precision@score0.7")
+# The detector on the card against the same module on the CPU (fp32, TF32
+# off): heads within DET_LOGIT_TOL; decoded scores within DET_SCORE_TOL
+# (the sigmoid's slope is at most 1/4) and boxes within DET_BOX_TOL px
+# (4 px x offset gap + 2 x 4 px x size gap) on slots scoring above 1e-4;
+# a slot apart only at a counted near-tie.
+DET_PARITY_B = 2
+DET_LOGIT_TOL = 1e-3
+DET_SCORE_TOL = DET_LOGIT_TOL / 4
+DET_BOX_TOL = 12 * DET_LOGIT_TOL
+NMS_IOU = 0.7             # decode_detections' box NMS
+# The serving path at bench.py:bench_frame's shape (BENCH_FRAMES=2,
+# BENCH_FRAME_ITERS=10): 512 x 896 frames, 22 players, 512^2 crops.
+FRAME_HW, FRAME_PLAYERS, FRAME_B, FRAME_ITERS = (512, 896), 22, 2, 10
+FRAME_SEED = 20_000_000
+FRAME_CROP = 512
+# Images of each K3 frame pass held against the dense plain version (which
+# takes ~6 s at 448^2 for 2 images and ~35 s at 896^2 for one).
+K3_FRAME_PLAIN_B = {"detector_eval": 2, "frame_pipeline": 1}
+# One frame, 4 slots, on the card against the CPU, stage by stage on the
+# CPU's boxes: the crops within FRAME_CROP_TOL (the same bilinear steps);
+# ProxyNet's logits within PN_LOGIT_TOL, its decoded silhouette pixels and
+# keypoints apart (by > PN_KP_TOL px) only at near-ties (a mask logit, or
+# the heatmap's top two cells, within twice the measured logit gap),
+# counted; the regressor on one set of proxies within PREDICT_TOL (the
+# predict phase's bar). End to end, a valid slot whose 18-channel proxies
+# (silhouette and heatmaps at 256^2) are identical holds PREDICT_TOL
+# (joints in the normalised [-1, 1] crop frame); a slot whose proxy
+# differs (a flipped silhouette pixel that the 2x subsampling keeps, or a
+# keypoint whose truncated heatmap centre crosses a pixel) is counted and
+# reported, not held to it.
+FRAME_PARITY_K = 4
+FRAME_CROP_TOL = 1e-5
+PREDICT_TOL = 1e-3
+FRAME_OUTPUTS = ("cam_wp", "betas", "pose_rotmats", "vertices", "joints2d")
 
 _T0 = time.time()
 
@@ -223,6 +272,52 @@ def device_profile(fn) -> dict:
             "top_device_ms": [[k[:60], round(v, 3)] for k, v in top]}
 
 
+def detection_flips(cpu, gpu, score_tol: float, box_tol: float,
+                    thresh: float = 0.7) -> dict:
+    """Slot-by-slot gaps between two decodes of the same frames, (F, K)
+    scores and (F, K, 4) boxes as numpy, the CPU's first. Slots where both
+    score at most 1e-4 are skipped. A slot whose scores differ by more
+    than ``score_tol`` or boxes by more than ``box_tol`` px is a flip, and
+    must be a near-tie: another peak of the frame whose score lies within
+    ``score_tol`` of the slot's (the two may come in either order), or a
+    box whose IoU with another lies within 1e-3 of the box NMS's
+    threshold. A box apart while the scores agree is held to the same
+    rule. ``valid`` (score >= ``thresh``) may differ only where a score
+    lies within ``score_tol`` of it. Returns the counts by kind; raises on
+    a flip that is no near-tie."""
+    import numpy as np
+    from soccerplayershapepose_torch.train.quality import _box_iou_matrix
+    (cs, cb), (gs, gb) = cpu, gpu
+    out = {"slots": 0, "score_max_abs": 0.0, "box_max_abs": 0.0,
+           "order_ties": 0, "nms_ties": 0, "threshold_flips": 0}
+    for f in range(cs.shape[0]):
+        live = (cs[f] > 1e-4) | (gs[f] > 1e-4)
+        ds = np.abs(cs[f] - gs[f])
+        db = np.abs(cb[f] - gb[f]).max(-1)
+        out["slots"] += int(live.sum())
+        if live.any():
+            out["score_max_abs"] = max(out["score_max_abs"],
+                                       float(ds[live].max()))
+            out["box_max_abs"] = max(out["box_max_abs"],
+                                     float(db[live].max()))
+        peaks = cs[f][cs[f] > 1e-4]
+        for i in np.nonzero(live & ((ds > score_tol) | (db > box_tol)))[0]:
+            if (np.abs(peaks - cs[f][i]) <= score_tol).sum() > 1:
+                out["order_ties"] += 1
+                continue
+            iou = _box_iou_matrix(cb[f][i:i + 1], cb[f])[0]
+            iou[i] = 0.0
+            check(bool((np.abs(iou - NMS_IOU) <= 1e-3).any()),
+                  "frame %d slot %d: score %.6g vs %.6g, box apart by %.3g "
+                  "px, at no near-tie" % (f, i, cs[f][i], gs[f][i], db[i]))
+            out["nms_ties"] += 1
+        flip = (cs[f] >= thresh) != (gs[f] >= thresh)
+        check(bool((np.abs(cs[f][flip] - thresh) <= score_tol).all()),
+              "frame %d: valid differs away from the threshold" % f)
+        out["threshold_flips"] += int(flip.sum())
+    return out
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -255,6 +350,15 @@ def main() -> int:
         from soccerplayershapepose_torch.convert import load_proxynet_weights
         from soccerplayershapepose_torch.pipeline.extract import (
             ProxyExtractor)
+        from soccerplayershapepose_torch.convert import load_detector_weights
+        from soccerplayershapepose_torch.models import detector as det_mod
+        from soccerplayershapepose_torch.pipeline.fullframe import (
+            build_frame_pipeline)
+        from soccerplayershapepose_torch.models.perception import (
+            decode_keypoints, decode_silhouette)
+        from soccerplayershapepose_torch.ops.roi_align import roi_align
+        from soccerplayershapepose_torch.pipeline.proxy import (
+            create_proxy_representation)
     except ImportError as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
@@ -262,7 +366,7 @@ def main() -> int:
     import numpy as np
     root = os.path.dirname(os.path.abspath(__file__))
     for path in (WEIGHTS, RECORD, E2E_RECORD, PN_WEIGHTS[256],
-                 PN_RECORDS[256]):
+                 PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD):
         if not os.path.isfile(os.path.join(root, path)):
             print("chip_smoke: %s is missing; the evaluations need the "
                   "committed weights and records" % path, file=sys.stderr)
@@ -724,11 +828,13 @@ def main() -> int:
          kernel_vs_plain_b=EVAL_PLAIN_B, kernel_vs_plain_rel=plain_rel,
          nvidia_smi=smi)
 
-    def k3_case(scn, b, wh, scale):
-        """K3 at one pass shape of a crop scene: timed, held against its
-        plain version (face ids and mask identical, barycentrics within
-        K3_W_TOL), the same bits run to run, and exactly the pairs inside
-        the faces' boxes padded by 1 px evaluated."""
+    def k3_case(scn, b, wh, scale, plain_b=None):
+        """K3 at one pass shape of a scene: timed, held against its plain
+        version (face ids and mask identical, barycentrics within K3_W_TOL)
+        on the first ``plain_b`` images (default all b) of the same
+        launch, the same bits run to run, and exactly the pairs inside the
+        faces' boxes padded by 1 px evaluated."""
+        plain_b = b if plain_b is None else plain_b
         v2d = (scn["verts2d"][:b] * scale).contiguous()
         z = scn["verts_z"][:b].contiguous()
         tri9, _, cymin, cymax, cxmin, cxmax, _ = zb._sorted_tri_z_and_ranges(
@@ -738,16 +844,17 @@ def main() -> int:
         zr = zb.face_records(tri9)
         args = (zr, lo, hi, wh)
         ms, out = time_ms(lambda: zb.launch_zbuffer(*args), 20)
-        p_ms, ref = time_ms(lambda: zb.rasterize_bary_plain(tri9, wh), 1,
-                            warmup=0)
+        p_ms, ref = time_ms(lambda: zb.rasterize_bary_plain(
+            tri9[:plain_b], wh), 1, warmup=0)
         again = zb.launch_zbuffer(*args)
         n_eval = pairs_evaluated(lambda n: zb.launch_zbuffer(
             *args, pair_count=n))
-        same = bool(torch.equal(out[0], ref[0]))
-        w_err = max(float((out[i] - ref[i]).abs().max()) for i in (1, 2))
+        head = [o[:plain_b] for o in out]
+        same = bool(torch.equal(head[0], ref[0]))
+        w_err = max(float((head[i] - ref[i]).abs().max()) for i in (1, 2))
         check(same and w_err <= K3_W_TOL,
               "K3 disagrees with its plain version at the path's shape B=%d "
-              "%d^2: ids %s, w %.3g" % (b, wh, same, w_err))
+              "%d^2: ids %s, w %.3g" % (plain_b, wh, same, w_err))
         check(all(torch.equal(x, y) for x, y in zip(out, again)),
               "K3 differs from run to run at B=%d %d^2" % (b, wh))
         padded = br.support_pairs(zr[..., zb.BOX], wh)
@@ -760,17 +867,25 @@ def main() -> int:
         # own box (a pixel outside it cannot be covered), no margin.
         k3_support = br.support_pairs(br.face_boxes(tri9[..., :6], 0.0), wh)
         n_chunks, n_bands = cymin.shape[1], lo.shape[1]
-        # Each input read once (the table, four box arrays, lo and hi), each
-        # output written once (face id, w0, w1: 12 bytes per pixel).
-        bytes_moved = (tri9.numel() * 4 + 4 * b * n_chunks * 4
+        # The chunks the kernel can reach: those inside some band's [lo, hi)
+        # (the faces of a dropped player, +1e5 px away, lie in none).
+        ci = torch.arange(n_chunks, device=lo.device)
+        reach = ((ci >= lo[..., None]) & (ci < hi[..., None])).any(1)
+        n_reach = int(reach.sum())
+        # Each input read once (the reachable chunks' faces, 9 floats each,
+        # and their four box entries; lo and hi), each output written once
+        # (face id, w0, w1: 12 bytes per pixel).
+        bytes_moved = (n_reach * (br.CHUNK * 9 + 4) * 4
                        + 2 * b * n_bands * 4 + b * wh * wh * 12)
         bound_ms, bound_by = roofline_ms(k3_support * K3_FLOPS_PER_PAIR,
                                          bytes_moved)
-        return {"b": b, "wh": wh, "ms": ms, "plain_ms": p_ms,
+        return {"b": b, "wh": wh, "faces": int(scn["faces"].shape[0]),
+                "ms": ms, "plain_b": plain_b, "plain_ms": p_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_ms_chunk_level": roofline_ms(
                     visits_chunk_level * K3_FLOPS_PER_PAIR, bytes_moved)[0],
                 "support_pairs": k3_support, "pairs_evaluated": n_eval,
+                "faces_reachable": n_reach * br.CHUNK,
                 "padded_box_pairs": padded,
                 # The gather: every x-tile of a band tests each face of the
                 # band's [lo, hi).
@@ -779,7 +894,7 @@ def main() -> int:
                 "chunk_visits": n_cv,
                 "visits_chunk_level": visits_chunk_level,
                 "chunk_visits_unpruned": n_cv_all, "w_max_abs": w_err,
-                "w_bit_equal": all(torch.equal(out[i], ref[i])
+                "w_bit_equal": all(torch.equal(head[i], ref[i])
                                    for i in (1, 2)),
                 "coverage": float((out[0] >= 0).float().mean())}
 
@@ -966,6 +1081,267 @@ def main() -> int:
     t = time.time()
     emit("e2e_profile", t, **device_profile(e2e))
 
+    # == The full-frame path: frame synthesis (K3), detector, pipeline =======
+    det_gpu = load_detector_weights(os.path.join(root, DET_WEIGHTS), dev)
+    det_cpu = load_detector_weights(os.path.join(root, DET_WEIGHTS), "cpu")
+    with open(os.path.join(root, DET_RECORD)) as f:
+        det_record = json.load(f)
+    # The first batch of the detector's evaluation: geometry from a CPU
+    # generator, appearance from one on the card, seeded as
+    # evaluate_detector seeds its batch 0.
+    det_seed = quality.EVAL_SEED_BASE + 500_000
+    det_draws = synth.sample_frame_draws(
+        torch.Generator().manual_seed(det_seed), DET_BATCH, DET_PLAYERS,
+        DET_HW, image_gen=torch.Generator(device=dev).manual_seed(det_seed))
+    det_scene = synth.frame_scene(assets, det_draws, DET_HW)
+    # The pipeline's frames: 2 of 512 x 896, 22 players each, made ahead of
+    # the timed window; K3 runs once for the batch.
+    frame_draws = synth.sample_frame_draws(
+        torch.Generator().manual_seed(FRAME_SEED), FRAME_B, FRAME_PLAYERS,
+        FRAME_HW,
+        image_gen=torch.Generator(device=dev).manual_seed(FRAME_SEED))
+    frame_scene = synth.frame_scene(assets, frame_draws, FRAME_HW)
+
+    # -- k3_frame_parity: K3 at the frames' 448^2 and 896^2 passes -----------
+    # The dense plain version takes seconds here, so it runs on the first
+    # images of the timed launch only: 2 of the evaluation's 16 frames at
+    # 448^2 (110,208 faces each), 1 of the pipeline's 2 at 896^2 (303,072).
+    t = time.time()
+    k3_frames = [
+        dict(k3_case(scn, b, scn["wh"], 1.0, K3_FRAME_PLAIN_B[path]),
+             path=path)
+        for path, scn, b in (("detector_eval", det_scene, DET_BATCH),
+                             ("frame_pipeline", frame_scene, FRAME_B))]
+    for r, scn in zip(k3_frames, (det_scene, frame_scene)):
+        r["dropped_players"] = int((scn["boxes"][:r["b"], :, 0] > 1e4).sum())
+        check(r["dropped_players"] > 0, "no dropped player at %d^2" % r["wh"])
+    emit("k3_frame_parity", t, flops_per_pair=K3_FLOPS_PER_PAIR,
+         shapes=k3_frames, launches_per_path_pass=1, nvidia_smi=smi)
+    k3 += k3_frames
+
+    # -- detector_parity: the detector on the card vs the CPU ---------------
+    t = time.time()
+    zb.reset_launch_counts()
+    det_frames = synth.render_frame_batch(assets, det_draws,
+                                          DET_HW)["image"]
+    check(zb.LAUNCHES["zbuffer_bary"] == 1,
+          "K3 launched %d times for one frame batch"
+          % zb.LAUNCHES["zbuffer_bary"])
+    check(tuple(det_frames.shape) == (DET_BATCH,) + DET_HW + (3,)
+          and bool(torch.isfinite(det_frames).all()),
+          "the frames are not (B, h, w, 3) finite values")
+    x = det_frames[:DET_PARITY_B].permute(0, 3, 1, 2)
+    with torch.no_grad():
+        heads_gpu = det_gpu(x)
+        heads_cpu = det_cpu(x.cpu())
+    head_err = {name: float((g.cpu() - c).abs().max())
+                for name, g, c in zip(heads_gpu._fields, heads_gpu,
+                                      heads_cpu)}
+    check(max(head_err.values()) <= DET_LOGIT_TOL,
+          "the detector on the card disagrees with the CPU: %s" % head_err)
+
+    def as_np(d):
+        return d.scores.cpu().numpy(), d.boxes.cpu().numpy()
+
+    det_gaps = detection_flips(
+        as_np(det_mod.decode_detections(heads_cpu)),
+        as_np(det_mod.decode_detections(heads_gpu)), DET_SCORE_TOL,
+        DET_BOX_TOL)
+    emit("detector_parity", t, b=DET_PARITY_B, hw=list(DET_HW),
+         logit_tol=DET_LOGIT_TOL, head_max_abs=head_err,
+         score_tol=DET_SCORE_TOL, box_tol_px=DET_BOX_TOL, decode=det_gaps)
+
+    # -- detector_eval: held-out AP on the card (K3 once per batch) ---------
+    t = time.time()
+
+    def det_eval():
+        return quality.evaluate_detector(
+            det_gpu, assets, n_batches=DET_BATCHES, batch=DET_BATCH,
+            hw=DET_HW, n_players=DET_PLAYERS, device=dev)
+
+    det_cold = det_eval()
+    torch.cuda.synchronize()
+    cold_s = time.time() - t
+    t_det = time.time()
+    zb.reset_launch_counts()
+    res_det = det_eval()
+    torch.cuda.synchronize()
+    det_s = time.time() - t_det
+    k3_launches_det = zb.LAUNCHES["zbuffer_bary"]
+    check(k3_launches_det == DET_BATCHES,
+          "K3 launched %d times in %d detector batches"
+          % (k3_launches_det, DET_BATCHES))
+    for k in DET_METRICS:
+        check(abs(res_det[k] - det_record[k]) <= RECORD_REL * det_record[k],
+              "detector %s %.4f is not within %d%% of the record %.4f"
+              % (k, res_det[k], RECORD_REL * 100, det_record[k]))
+    # The detector's forward and its decode alone, at the evaluation's
+    # batch.
+    with torch.no_grad():
+        fwd_ms, heads = time_ms(lambda: det_gpu(det_frames.permute(0, 3, 1,
+                                                                    2)), 10)
+    dec_ms, _ = time_ms(lambda: det_mod.decode_detections(heads), 10)
+    n_frames = DET_BATCHES * DET_BATCH
+    emit("detector_eval", t, n_images=n_frames, hw=list(DET_HW),
+         detector_forward_ms=fwd_ms, decode_ms=dec_ms,
+         players=DET_PLAYERS, flip_tta=False, wall_s=round(det_s, 4),
+         images_per_s=round(n_frames / det_s, 2),
+         cold_wall_s=round(cold_s, 4), k3_launches=k3_launches_det,
+         repeat_equal=all(res_det[k] == det_cold[k] for k in DET_METRICS),
+         metrics=res_det, record={k: det_record[k] for k in DET_METRICS},
+         record_rel_tol=RECORD_REL, profile=device_profile(det_eval),
+         nvidia_smi=smi)
+
+    # -- frame_pipeline: frames -> detections -> crops -> meshes ------------
+    t = time.time()
+    pn_frame = load_proxynet_weights(os.path.join(root, PN_WEIGHTS[512]), dev,
+                                     with_iuv=False)
+    zb.reset_launch_counts()
+    frames = synth.render_frame_batch(assets, frame_draws,
+                                      FRAME_HW)["image"].contiguous()
+    torch.cuda.synchronize()
+    k3_launches_frame = zb.LAUNCHES["zbuffer_bary"]
+    check(k3_launches_frame == 1, "K3 launched %d times for the pipeline's "
+          "frames" % k3_launches_frame)
+    fn = build_frame_pipeline(det_gpu, pn_frame, model,
+                              max_players=FRAME_PLAYERS, crop_wh=FRAME_CROP,
+                              device=dev)
+    out = fn(assets, frames)                                   # warm
+    torch.cuda.synchronize()
+    t_fr = time.time()
+    for _ in range(FRAME_ITERS):
+        out = fn(assets, frames)
+    torch.cuda.synchronize()
+    frame_s = (time.time() - t_fr) / FRAME_ITERS
+    k = FRAME_PLAYERS
+    shapes_ok = {"vertices": (FRAME_B, k, 6890, 3),
+                 "joints2d": (FRAME_B, k, 17, 2),
+                 "pose_rotmats": (FRAME_B, k, 24, 3, 3),
+                 "betas": (FRAME_B, k, 10), "cam_wp": (FRAME_B, k, 3),
+                 "boxes": (FRAME_B, k, 4), "scores": (FRAME_B, k),
+                 "valid": (FRAME_B, k)}
+    for name, shape in shapes_ok.items():
+        v = getattr(out, name)
+        check(tuple(v.shape) == shape and v.device.type == dev.type
+              and bool(torch.isfinite(v.float()).all()),
+              "frame pipeline: %s is %s, not finite %s on the card"
+              % (name, tuple(v.shape), shape))
+    stage_s = {}
+    fn_staged = build_frame_pipeline(det_gpu, pn_frame, model,
+                                     max_players=FRAME_PLAYERS,
+                                     crop_wh=FRAME_CROP, device=dev,
+                                     stage_times=stage_s)
+    for _ in range(3):
+        fn_staged(assets, frames)
+    # One frame with 4 slots through the card and through the CPU.
+    fn4 = build_frame_pipeline(det_gpu, pn_frame, model,
+                               max_players=FRAME_PARITY_K,
+                               crop_wh=FRAME_CROP, device=dev)
+    pn_cpu512 = load_proxynet_weights(os.path.join(root, PN_WEIGHTS[512]),
+                                      "cpu", with_iuv=False)
+    reg_cpu = load_regressor_weights(os.path.join(root, WEIGHTS), "cpu")
+    cpu_assets = assets.to("cpu")
+    fn4_cpu = build_frame_pipeline(det_cpu, pn_cpu512, reg_cpu,
+                                   max_players=FRAME_PARITY_K,
+                                   crop_wh=FRAME_CROP, device="cpu")
+    frame1 = frames[:1].cpu()
+    o_gpu = fn4(assets, frames[:1])
+    o_cpu = fn4_cpu(cpu_assets, frame1)
+    frame_gaps = detection_flips(
+        (o_cpu.scores.numpy(), o_cpu.boxes.numpy()),
+        (o_gpu.scores.cpu().numpy(), o_gpu.boxes.cpu().numpy()),
+        DET_SCORE_TOL, DET_BOX_TOL)
+    # Stage by stage on the CPU's square boxes.
+    c = FRAME_CROP
+    sq = o_cpu.boxes
+    crops_c = roi_align(frame1, sq, c, sampling_ratio=1).reshape(-1, c, c, 3)
+    crops_g = roi_align(frames[:1], sq.to(dev), c,
+                        sampling_ratio=1).reshape(-1, c, c, 3)
+    crop_err = float((crops_g.cpu() - crops_c).abs().max())
+    check(crop_err <= FRAME_CROP_TOL,
+          "the crops on the card differ from the CPU's by %.3g" % crop_err)
+    with torch.no_grad():
+        p_c = pn_cpu512(crops_c.permute(0, 3, 1, 2))
+        p_g = pn_frame(crops_c.to(dev).permute(0, 3, 1, 2))
+    gap = {n: float((getattr(p_g, n).cpu() - getattr(p_c, n)).abs().max())
+           for n in ("kp_logits", "mask_logits")}
+    check(max(gap.values()) <= PN_LOGIT_TOL,
+          "ProxyNet at 512^2 on the card disagrees with the CPU: %s" % gap)
+    sil_c = decode_silhouette(p_c.mask_logits)
+    sil_g = decode_silhouette(p_g.mask_logits).cpu()
+    sil_flip = sil_c != sil_g                                  # (K, c, c)
+    check(bool((p_c.mask_logits[sil_flip].abs()
+                <= 2 * gap["mask_logits"]).all()),
+          "a silhouette pixel flips away from a mask logit near 0")
+    stride = c // p_c.kp_logits.shape[1]
+    kp_c = decode_keypoints(p_c.kp_logits, stride)
+    kp_g = decode_keypoints(p_g.kp_logits, stride).cpu()
+    top2 = torch.topk(p_c.kp_logits.flatten(1, 2), 2, dim=1).values
+    kp_ties = (top2[:, 0] - top2[:, 1]) <= 2 * gap["kp_logits"]   # (K, 17)
+    kp_far = (kp_g[..., :2] - kp_c[..., :2]).abs().amax(-1) > PN_KP_TOL
+    check(not bool((kp_far & ~kp_ties).any()),
+          "joints %s apart by more than %g px at no near-tie"
+          % (torch.nonzero(kp_far & ~kp_ties).tolist(), PN_KP_TOL))
+    r_g = predict_smpl(model, assets, sil_c.to(dev), kp_c.to(dev),
+                       proxy_wh=c, device=dev)
+    r_c = predict_smpl(reg_cpu, cpu_assets, sil_c, kp_c, proxy_wh=c,
+                       device="cpu")
+    norm = {"joints2d_kprcnn": c / 2.0}
+    reg_err = {n: float((getattr(r_g, n).cpu() - getattr(r_c, n)).abs().max())
+               / norm.get(n, 1.0) for n in r_c._fields}
+    check(max(reg_err.values()) <= PREDICT_TOL,
+          "the regressor on the card disagrees with the CPU: %s" % reg_err)
+    # The regressor's inputs: a silhouette flip on a sampled pixel, or a
+    # keypoint whose truncated heatmap centre moves, changes the proxy.
+    prox_c = create_proxy_representation(sil_c, kp_c, in_wh=c)
+    prox_g = create_proxy_representation(sil_g, kp_g, in_wh=c)
+    proxy_px = (prox_c != prox_g).flatten(1).sum(1)            # (K,)
+    # End to end: the slots that hold the same valid detection on both
+    # sides; those whose proxies agree are held to PREDICT_TOL.
+    same = (o_cpu.valid & o_gpu.valid.cpu()
+            & ((o_cpu.boxes - o_gpu.boxes.cpu()).abs().amax(-1)
+               <= DET_BOX_TOL))[0]
+    flipped = proxy_px > 0                                     # (K,)
+    check(bool(same.any()), "no valid slot to compare on the parity frame")
+    out_err, out_err_flipped = {}, {}
+    for name in FRAME_OUTPUTS:
+        d = (getattr(o_gpu, name).cpu() - getattr(o_cpu, name))[0]
+        d = d.abs().flatten(1).amax(1) / (c / 2.0 if name == "joints2d"
+                                          else 1.0)           # (K,)
+        held, other = d[same & ~flipped], d[same & flipped]
+        out_err[name] = float(held.max()) if len(held) else 0.0
+        out_err_flipped[name] = float(other.max()) if len(other) else 0.0
+        check(out_err[name] <= PREDICT_TOL,
+              "frame pipeline on the card disagrees with the CPU on a slot "
+              "with the same proxies: %s %.3g" % (name, out_err[name]))
+    frame_parity = {
+        "max_players": FRAME_PARITY_K, "decode": frame_gaps,
+        "crop_max_abs": crop_err, "proxynet_logit_max_abs": gap,
+        "sil_flip_px": sil_flip.flatten(1).sum(1).tolist(),
+        "kp_apart": kp_far.sum(1).tolist(),
+        "kp_near_ties": int(kp_ties.sum()),
+        "proxy_values_apart": proxy_px.tolist(),
+        "regressor_max_abs": reg_err,
+        "valid_slots_compared": int(same.sum()),
+        "slots_with_proxy_flips": int((same & flipped).sum()),
+        "out_max_abs_same_proxies": out_err,
+        "out_max_abs_flipped_proxies": out_err_flipped,
+        "tol": PREDICT_TOL}
+    emit("frame_pipeline", t, frames=FRAME_B, hw=list(FRAME_HW),
+         max_players=FRAME_PLAYERS, crop_wh=FRAME_CROP, iters=FRAME_ITERS,
+         weights=[DET_WEIGHTS, PN_WEIGHTS[512] + " (no IUV head)", WEIGHTS],
+         precision="fp32, TF32 off",
+         ms_per_call=round(frame_s * 1e3, 3),
+         frames_per_s=round(FRAME_B / frame_s, 3),
+         crops_per_s=round(FRAME_B * FRAME_PLAYERS / frame_s, 2),
+         valid_slots=int(out.valid.sum()),
+         stage_ms_synchronised={n: round(v / 3 * 1e3, 3)
+                                for n, v in stage_s.items()},
+         k3_launches_frame_synthesis=k3_launches_frame,
+         parity=frame_parity,
+         profile=device_profile(lambda: fn(assets, frames)),
+         nvidia_smi=smi)
+
     # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
     k3_launches_pn = {}
     for wh in PN_SHAPES:
@@ -1030,12 +1406,17 @@ def main() -> int:
             "library_ms": None, "support_pairs": support,
             "pairs_evaluated": evaluated[name],
             "bound_ms_chunk_level": bound_chunk_level[name]})
-    # K3 runs once at each pass shape per batch, on four paths: the
+    # K3 runs once at each pass shape per batch, on six paths: the
     # synthetic evaluation and ProxyNet's at 512² (512² and 128² passes),
-    # the e2e evaluation and ProxyNet's at 256² (256² and 64²). Its times
-    # are the mean per launch over the four pass shapes, its pairs the sum
-    # over them; "shapes" gives each, "launches_by_path" each path's count.
-    k3_by_path = {"synth_eval": k3_launches, "e2e_eval": k3_launches_e2e}
+    # the e2e evaluation and ProxyNet's at 256² (256² and 64²), the
+    # detector's evaluation (one 448² pass per batch of 16 frames) and the
+    # frame pipeline's synthesis (one 896² pass for its 2 frames). Its
+    # times are the mean per launch over the six pass shapes, its pairs the
+    # sum over them; "shapes" gives each (the plain version's time on
+    # plain_b of the b images), "launches_by_path" each path's count.
+    k3_by_path = {"synth_eval": k3_launches, "e2e_eval": k3_launches_e2e,
+                  "detector_eval": k3_launches_det,
+                  "frame_pipeline_synthesis": k3_launches_frame}
     k3_by_path.update({"proxynet_eval_%d" % wh: n
                        for wh, n in k3_launches_pn.items()})
     kernels.append({
@@ -1053,9 +1434,9 @@ def main() -> int:
         "library_ms": None,
         "support_pairs": sum(r["support_pairs"] for r in k3),
         "pairs_evaluated": sum(r["pairs_evaluated"] for r in k3),
-        "shapes": [{k: r[k] for k in ("path", "b", "wh", "ms", "plain_ms",
-                                      "bound_ms", "support_pairs",
-                                      "pairs_evaluated",
+        "shapes": [{k: r[k] for k in ("path", "b", "wh", "faces", "ms",
+                                      "plain_b", "plain_ms", "bound_ms",
+                                      "support_pairs", "pairs_evaluated",
                                       "bound_ms_chunk_level")} for r in k3]})
     check(time.time() - _T0 < BUDGET_S, "past the wall-clock budget")
     print(smi, flush=True)

@@ -51,3 +51,8 @@ SINGLE_VIEW_ITERS = 100
 FITTING_LR = 0.001
 FITTING_INIT_LOSS_WEIGHTS = {"joints2D": 1.0, "silhouette": 1000000.0}
 MAX_PLAYERS_PER_FRAME = 22
+
+# The detector's operating point (score ≥ 0.7, person class) and the border
+# grown around a player's box before it is squared into a crop.
+DETECTION_SCORE_THRESH = 0.7
+PLAYER_CROP_BORDER = 40

@@ -5,20 +5,23 @@ The JAX package's ``SMPLAssets`` turned into numpy
 a fit's initial parameters become the port's tensors, so both packages can
 compute on the same numbers. The committed flax regressor weights
 (``weights/*.npz``, flat keys as ``train/checkpoint.py:_flatten`` writes
-them) load into :class:`SingleInputRegressor` and the committed ProxyNet
-weights (``weights/proxynet_*_f16.npz``) into :class:`ProxyNet` at run
-time. Nothing is written to disk.
+them) load into :class:`SingleInputRegressor`, the committed ProxyNet
+weights (``weights/proxynet_*_f16.npz``) into :class:`ProxyNet` and the
+detector's (``weights/detector_256x448_f16.npz``) into
+:class:`PlayerDetector` at run time. Nothing is written to disk.
 """
 
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
 from soccerplayershapepose_torch.fit.engine import FitInit
+from soccerplayershapepose_torch.models.detector import PlayerDetector
 from soccerplayershapepose_torch.models.perception import ProxyNet
 from soccerplayershapepose_torch.models.regressor import SingleInputRegressor
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
@@ -82,6 +85,22 @@ def regressor_state_dict_from_flat(flat: dict) -> dict:
     return sd
 
 
+def _load_strict(model, sd: dict, path: str, what: str):
+    """Load ``sd`` into ``model``; a missing or an unexpected variable
+    raises (BN's ``num_batches_tracked`` is not in flax's variables)."""
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError("weights %s do not fit %s: missing %s, unexpected %s"
+                         % (path, what, missing[:5], unexpected[:5]))
+    return model
+
+
+def _read_flat(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
 def load_regressor_weights(path: str, device: DeviceLike = None
                            ) -> SingleInputRegressor:
     """Read a committed flax regressor npz → the regressor in eval mode on
@@ -89,24 +108,20 @@ def load_regressor_weights(path: str, device: DeviceLike = None
     from the weights (stem kernel's input channels; ``Bottleneck`` blocks
     mean ResNet-50); IEF runs 3 iterations."""
     dev = default_device(device)
-    with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
+    flat = _read_flat(path)
     in_channels = int(flat["params/ResNet_0/Conv_0/kernel"].shape[2])
     layers = 50 if any("/Bottleneck_" in k for k in flat) else 18
     model = SingleInputRegressor(in_channels=in_channels,
                                  resnet_layers=layers)
-    missing, unexpected = model.load_state_dict(
-        regressor_state_dict_from_flat(flat), strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing or unexpected:
-        raise ValueError("weights %s do not fit the regressor: missing %s, "
-                         "unexpected %s" % (path, missing[:5], unexpected[:5]))
+    _load_strict(model, regressor_state_dict_from_flat(flat), path,
+                 "the regressor")
     return model.to(dev).eval()
 
 
 def _proxynet_module_name(top: str, path: list) -> str:
-    """flax module path of a :class:`ProxyNet` variable → the submodule
-    that holds it (``FPNTrunk_0/trunk/BasicBlock_3/Conv_1`` →
+    """flax module path of a :class:`ProxyNet` or :class:`PlayerDetector`
+    variable → the submodule that holds it
+    (``FPNTrunk_0/trunk/BasicBlock_3/Conv_1`` →
     ``trunk.trunk.blocks.3.convs.1``, ``kp_tower/Conv_0`` →
     ``kp_tower.convs.0``, ``FPNTrunk_0/fpn/lateral2`` →
     ``trunk.fpn.lateral.2``, ``mask_up1`` → ``mask_up1``)."""
@@ -150,21 +165,48 @@ def proxynet_state_dict_from_flat(flat: dict) -> dict:
     return sd
 
 
-def load_proxynet_weights(path: str, device: DeviceLike = None) -> ProxyNet:
+# ProxyNet's IUV head, which the 18-channel proxy does not use.
+IUV_HEAD = ("iuv_tower", "part_out", "uv_out")
+
+
+def load_proxynet_weights(path: str, device: DeviceLike = None,
+                          with_iuv: Optional[bool] = None) -> ProxyNet:
     """Read a committed flax ProxyNet npz → the net in eval mode on
-    ``device`` (None: the CUDA card). ``with_iuv`` and the head width are
-    read from the weights; the load is strict: a missing or an unexpected
-    variable raises."""
+    ``device`` (None: the CUDA card). The head width is read from the
+    weights, and ``with_iuv`` too unless given: ``with_iuv=False`` drops
+    the IUV head's variables (``IUV_HEAD``) by name, as the full-frame
+    pipeline builds ProxyNet. The load is strict: a missing or an
+    unexpected variable raises."""
     dev = default_device(device)
-    with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
+    flat = _read_flat(path)
+    if with_iuv is None:
+        with_iuv = "params/part_out/kernel" in flat
+    if not with_iuv:
+        flat = {k: v for k, v in flat.items()
+                if k.split("/")[1] not in IUV_HEAD}
     channels = int(flat["params/kp_out/kernel"].shape[2])
-    model = ProxyNet(with_iuv="params/part_out/kernel" in flat,
-                     channels=channels)
-    missing, unexpected = model.load_state_dict(
-        proxynet_state_dict_from_flat(flat), strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing or unexpected:
-        raise ValueError("weights %s do not fit ProxyNet: missing %s, "
-                         "unexpected %s" % (path, missing[:5], unexpected[:5]))
+    model = ProxyNet(with_iuv=with_iuv, channels=channels)
+    _load_strict(model, proxynet_state_dict_from_flat(flat), path, "ProxyNet")
+    return model.to(dev).eval()
+
+
+def detector_state_dict_from_flat(flat: dict) -> dict:
+    """Flat flax PlayerDetector variables (``params/FPNTrunk_0/...``,
+    ``params/det_tower/Conv_{0,1}``, ``params/{center,size,offset}_out``,
+    ``batch_stats/...``) → a :class:`PlayerDetector` state dict, with
+    ProxyNet's mapping (the trunk's names are the same)."""
+    return proxynet_state_dict_from_flat(flat)
+
+
+def load_detector_weights(path: str, device: DeviceLike = None
+                          ) -> PlayerDetector:
+    """Read a committed flax detector npz (``weights/detector_256x448_f16
+    .npz``) → the detector in eval mode on ``device`` (None: the CUDA
+    card). The width is read from the weights; the load is strict."""
+    dev = default_device(device)
+    flat = _read_flat(path)
+    channels = int(flat["params/center_out/kernel"].shape[2])
+    model = PlayerDetector(channels=channels)
+    _load_strict(model, detector_state_dict_from_flat(flat), path,
+                 "PlayerDetector")
     return model.to(dev).eval()

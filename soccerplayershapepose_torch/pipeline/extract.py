@@ -15,9 +15,12 @@ U logit negated), and keypoints are merged per joint at the coordinate
 level: averaged, score-weighted, where the two passes agree within
 ``kp_tta_tau`` of the crop size, the primary pass kept otherwise.
 
+:class:`PlayerDetectorRunner` is the frame half: uint8 frames → the
+detector (``models/detector.py``), with or without flip TTA → per-frame
+boxes at or above the score threshold, on the host.
+
 The stage functions of the JAX module (``create_proxy_stage``,
-``crop_player_stage``, …), ``read_image`` and ``PlayerDetectorRunner`` are
-not ported yet.
+``crop_player_stage``, …) and ``read_image`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
+from soccerplayershapepose_torch.models.detector import (
+    PlayerDetector, apply_flip_tta, decode_detections)
 from soccerplayershapepose_torch.models.perception import (
     ProxyNet, decode_iuv, decode_keypoints, decode_silhouette)
 from soccerplayershapepose_torch.utils.precision import (
@@ -200,3 +205,37 @@ class ProxyExtractor:
             n += 1
             results.append((kp, comp, None if iuv is None else iuv[i]))
         return results
+
+
+class PlayerDetectorRunner:
+    """Batched uint8 frames → scored person boxes, thresholded on the host.
+
+    ``model`` is moved to ``device`` (None: the CUDA card) and put in eval
+    mode; ``hw`` is the frames' (H, W), each divisible by 32."""
+
+    def __init__(self, model: PlayerDetector, hw: Tuple[int, int],
+                 score_thresh: float = cfg.DETECTION_SCORE_THRESH,
+                 flip_tta: bool = False, device: DeviceLike = None):
+        self.device = default_device(device)
+        self.model = model.to(self.device).eval()
+        self.hw = hw
+        self.score_thresh = score_thresh
+        self.flip_tta = flip_tta
+
+    @torch.no_grad()
+    def forward(self, frames_u8):
+        """(B, H, W, 3) uint8 (numpy or tensor) → the decoded
+        :class:`Detections` on the device, every one of the K slots."""
+        images = torch.as_tensor(frames_u8).to(self.device)
+        images = images.permute(0, 3, 1, 2).to(torch.float32) / 255.0
+        out = (apply_flip_tta(self.model, images) if self.flip_tta
+               else self.model(images))
+        return decode_detections(out)
+
+    def __call__(self, frames_u8) -> List[np.ndarray]:
+        """(B, H, W, 3) uint8 frames → one (N_i, 4) [x1, y1, x2, y2] box
+        array per frame, the boxes scoring at least ``score_thresh``."""
+        dets = self.forward(frames_u8)
+        boxes = dets.boxes.cpu().numpy()
+        scores = dets.scores.cpu().numpy()
+        return [b[s >= self.score_thresh] for b, s in zip(boxes, scores)]

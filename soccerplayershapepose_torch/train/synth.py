@@ -1,4 +1,4 @@
-"""Synthetic SMPL crops: labels and RGB images of ``train/synth.py``.
+"""Synthetic SMPL crops and frames of ``train/synth.py``.
 
 Counterpart of ``soccerplayershapepose_tpu/train/synth.py:synth_crop_batch``:
 a random soccer body per crop, an occluding second body in front of or
@@ -30,11 +30,18 @@ stripe direction (``u < 0.5``: vertical) and phase (6.28·u); its white
 shorts (``u < 0.5``) and jersey-coloured socks (``u < 0.6``), so white
 shorts come with jersey socks; the mowing stripes' period (25 + 65·u) and
 phase (6.28·u).
+
+Frames (:func:`sample_frame_draws`, :func:`render_frame_batch`, the
+counterpart of ``synth_frame_batch``) place N kit-coloured players in an
+h × w frame by their own small cameras and z-buffer all of them in one
+pass at max(h, w)², so they occlude each other; the detector's
+evaluation and the full-frame pipeline take their images, boxes and
+visible fills.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -278,8 +285,17 @@ def sample_appearance_draws(gen: torch.Generator, b: int, wh: int,
                 base=_uniform(gen, (b, 1, 1, 3), -0.08, 0.08),
                 noise=_uniform(gen, (b, wh, wh, 3), -0.06, 0.06)),
             None, None)
-    hc = wc = max(wh // 4, 1)
-    bg = BackgroundDraws(
+    bg = sample_background_draws(gen, b, wh, wh)
+    blur = sample_blur_draws(gen, b)
+    return AppearanceDraws(kit, shading, o_kit, o_shading, bg, blur,
+                           sample_photometric_draws(gen, b, wh, wh))
+
+
+def sample_background_draws(gen: torch.Generator, b: int, h: int,
+                            w: int) -> BackgroundDraws:
+    """The draws of a batch of h × w domain-randomised pitches."""
+    hc, wc = max(h // 4, 1), max(w // 4, 1)
+    return BackgroundDraws(
         base=_uniform(gen, (b, 1, 1, 3), -0.08, 0.10),
         theta=_uniform(gen, (b, 1, 1), 0.0, 3.14),
         mow_u=_uniform(gen, (b, 1, 1), 0.0, 1.0),
@@ -292,17 +308,23 @@ def sample_appearance_draws(gen: torch.Generator, b: int, wh: int,
         crowd=_uniform(gen, (b, hc, wc, 3), 0.05, 0.85),
         wild=_bernoulli(gen, (b, 1, 1, 1), 0.08),
         wild_bg=_uniform(gen, (b, hc, wc, 3), 0.0, 1.0),
-        noise=_uniform(gen, (b, wh, wh, 3), -0.05, 0.05))
-    blur = BlurDraws(theta=_uniform(gen, (b,), 0.0, 3.14),
+        noise=_uniform(gen, (b, h, w, 3), -0.05, 0.05))
+
+
+def sample_blur_draws(gen: torch.Generator, b: int) -> BlurDraws:
+    return BlurDraws(theta=_uniform(gen, (b,), 0.0, 3.14),
                      length=_uniform(gen, (b,), 1.0, float(BLUR_KSIZE)),
                      apply=_bernoulli(gen, (b, 1, 1, 1), 0.35))
-    photo = PhotometricDraws(
+
+
+def sample_photometric_draws(gen: torch.Generator, b: int, h: int,
+                             w: int) -> PhotometricDraws:
+    return PhotometricDraws(
         bright=_uniform(gen, (b, 1, 1, 1), -0.10, 0.10),
         contrast=_uniform(gen, (b, 1, 1, 1), 0.8, 1.2),
         gains=_uniform(gen, (b, 1, 1, 3), 0.92, 1.08),
-        noise=_normal(gen, (b, wh, wh, 3)),
+        noise=_normal(gen, (b, h, w, 3)),
         noise_scale=_uniform(gen, (b, 1, 1, 1), 0.0, 0.03))
-    return AppearanceDraws(kit, shading, o_kit, o_shading, bg, blur, photo)
 
 
 def draws_to(draws, device: torch.device):
@@ -678,3 +700,130 @@ def crop_labels(assets: SMPLAssets, verts2d: torch.Tensor,
     return {"silhouette": sil, "joints2d": joints2d,
             "kp_visible": ((on_body > 0.5) & in_frame).to(torch.float32),
             "part": part, "uv": uv, **rgb}
+
+
+# ---------------------------------------------------------------------------
+# Frame batches (detector training and evaluation, the full-frame pipeline)
+# ---------------------------------------------------------------------------
+
+class FrameDraws(NamedTuple):
+    """Everything random about a batch of B frames of N players each: the
+    B·N bodies (their own ``cam_wp`` unused), each player's camera, which
+    players are in the frame, and the appearance (kit and shading per
+    player; pitch, blur and jitter per h × w frame; no occluder)."""
+    body: BodyDraws
+    cam_wp: torch.Tensor       # (B·N, 3) s, tx, ty
+    valid: torch.Tensor        # (B, N) {0, 1} float, p 0.8
+    appearance: AppearanceDraws
+
+
+def sample_frame_draws(gen: torch.Generator, b: int, n_players: int,
+                       hw: Tuple[int, int],
+                       image_gen: Optional[torch.Generator] = None
+                       ) -> FrameDraws:
+    """The draws of B h × w frames: the geometry from ``gen``, then the
+    appearance from ``image_gen`` (default ``gen``), each on its
+    generator's device."""
+    h, w = hw
+    bn = b * n_players
+    body = sample_body_draws(gen, bn)
+    cam = torch.stack([_uniform(gen, (bn,), 0.08, 0.28),
+                       _uniform(gen, (bn,), -0.85, 0.85),
+                       _uniform(gen, (bn,), -0.75, 0.75)], dim=-1)
+    valid = _bernoulli(gen, (b, n_players), 0.8)
+    ig = gen if image_gen is None else image_gen
+    appearance = AppearanceDraws(
+        kit=sample_kit_draws(ig, bn), shading=sample_shading_draws(ig, bn),
+        occluder_kit=None, occluder_shading=None,
+        background=sample_background_draws(ig, b, h, w),
+        blur=sample_blur_draws(ig, b),
+        photometric=sample_photometric_draws(ig, b, h, w))
+    return FrameDraws(body, cam, valid, appearance)
+
+
+def frame_scene(assets: SMPLAssets, draws: FrameDraws, hw: Tuple[int, int]
+                ) -> dict:
+    """The geometry and attributes of a batch of frames: each player posed
+    and projected by its own weak-perspective camera into the max(h, w)
+    square, the square centred on the frame, a dropped player (``valid``
+    0) moved +1e5 px off it. Returns ``verts2d (B, N·V, 2)``, ``verts_z
+    (B, N·V)``, ``faces (N·F, 3)``, ``attrs (B, N·V, 4)`` (the shaded kit
+    colour and the player id 1..N, which all three vertices of a face
+    share), ``boxes (B, N, 4)`` pixel [x1, y1, x2, y2] of each player's
+    vertices and ``wh`` = max(h, w)."""
+    h, w = hw
+    wh = max(h, w)
+    dev = assets.faces.device
+    draws = draws_to(draws, dev)
+    b, n = draws.valid.shape
+    body_rm, orient_rm, betas, _ = smpl_params_from_draws(draws.body)
+    out = smpl_forward(assets, betas, body_rm, orient_rm)
+    transl = weak_perspective_to_translation(draws.cam_wp, cfg.FOCAL_LENGTH,
+                                             wh)
+    verts2d = perspective_project(out.vertices, None, transl,
+                                  focal_length=cfg.FOCAL_LENGTH, img_wh=wh)
+    verts_z = out.vertices[..., 2] + transl[:, None, 2]
+    verts2d = verts2d + torch.tensor([(w - wh) / 2.0, (h - wh) / 2.0],
+                                     device=dev)
+    valid = draws.valid.reshape(b * n)
+    verts2d = verts2d + (1.0 - valid)[:, None, None] * 1e5
+    boxes = torch.cat([torch.amin(verts2d, dim=1),
+                       torch.amax(verts2d, dim=1)], dim=-1)   # (B·N, 4)
+
+    d = draws.appearance
+    colors = _shaded_colors(d.shading, out.vertices, assets.faces,
+                            _kit_vertex_colors(assets, d.kit))
+    v = assets.v_template.shape[0]
+    n_faces = assets.faces.shape[0]
+    ids = torch.arange(1, n + 1, dtype=torch.float32,
+                       device=dev).repeat_interleave(v)
+    attrs = torch.cat([colors.reshape(b, n * v, 3),
+                       ids[None, :, None].expand(b, -1, -1)], dim=-1)
+    faces = (assets.faces.repeat(n, 1)
+             + (torch.arange(n, device=dev).repeat_interleave(n_faces)
+                * v).to(assets.faces.dtype)[:, None])
+    return {"verts2d": verts2d.reshape(b, n * v, 2),
+            "verts_z": verts_z.reshape(b, n * v), "faces": faces,
+            "attrs": attrs, "boxes": boxes.reshape(b, n, 4), "wh": wh}
+
+
+def render_frame_batch(assets: SMPLAssets, draws: FrameDraws,
+                       hw: Tuple[int, int]) -> dict:
+    """Multi-player frames from their draws, on the assets' device.
+
+    All the players of a frame (:func:`frame_scene`) are z-buffered in one
+    pass at max(h, w)² (K3 on the card), so they occlude each other; the
+    player id rides along as a fourth attribute and names the winner of
+    each pixel. The square is cut to h × w and composited over the pitch,
+    then blurred and jittered.
+
+    Returns ``image (B, h, w, 3)`` in [0, 1]; ``boxes (B, N, 4)`` pixel
+    [x1, y1, x2, y2] of each player's vertices; ``mask (B, N)`` validity;
+    ``visible_fill (B, N)``, the player's visible (z-buffer-winning) pixels
+    over its box's area (a fully visible player fills ~0.35-0.45).
+    """
+    h, w = hw
+    draws = draws_to(draws, assets.faces.device)
+    scene = frame_scene(assets, draws, hw)
+    attrs, mask = rasterize_attributes(scene["verts2d"], scene["verts_z"],
+                                       scene["attrs"], scene["faces"],
+                                       scene["wh"])
+    any_sil = mask[:, :h, :w].to(torch.float32)
+    id_map = torch.round(attrs[:, :h, :w, 3]) * any_sil       # (B, h, w)
+    boxes = scene["boxes"]
+    player = torch.arange(1, boxes.shape[1] + 1, dtype=torch.float32,
+                          device=boxes.device)
+    vis_px = (id_map[..., None] == player).sum(dim=(1, 2)).to(torch.float32)
+    area = torch.clamp((boxes[..., 2] - boxes[..., 0])
+                       * (boxes[..., 3] - boxes[..., 1]), min=1.0)
+    image = compose_image(attrs[:, :h, :w, :3], any_sil, draws.appearance)
+    return {"image": image, "boxes": boxes, "mask": draws.valid,
+            "visible_fill": vis_px / area}
+
+
+def synth_frame_batch(assets: SMPLAssets, gen: torch.Generator, b: int = 2,
+                      n_players: int = 6, hw: Tuple[int, int] = (256, 256),
+                      image_gen: Optional[torch.Generator] = None) -> dict:
+    """:func:`render_frame_batch` of :func:`sample_frame_draws`."""
+    return render_frame_batch(
+        assets, sample_frame_draws(gen, b, n_players, hw, image_gen), hw)

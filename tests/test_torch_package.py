@@ -335,3 +335,40 @@ def test_rgb_crops_and_extraction_repeat_on_card(cuda_device):
     images = straps.crop_images_u8(first["image"])
     for a, b in zip(ex.forward(images), ex.forward(images)):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_frames_and_frame_pipeline_repeat_on_card(cuda_device):
+    """Synthetic frames (all players of a frame in one K3 pass, launched
+    once per batch) and the full-frame pipeline give the same bits from
+    run to run on the card."""
+    from soccerplayershapepose_torch import convert
+    from soccerplayershapepose_torch.pipeline.fullframe import (
+        build_frame_pipeline)
+    from soccerplayershapepose_torch.smpl import synthesize_assets
+    from soccerplayershapepose_torch.train import synth
+    assets = synthesize_assets(device=cuda_device)
+    hw = (256, 448)
+    draws = synth.sample_frame_draws(
+        torch.Generator().manual_seed(0), 2, 8, hw,
+        image_gen=torch.Generator(device=cuda_device).manual_seed(0))
+    zb.reset_launch_counts()
+    first = synth.render_frame_batch(assets, draws, hw)
+    assert zb.LAUNCHES == {"zbuffer_bary": 1}
+    again = synth.render_frame_batch(assets, draws, hw)
+    for k, v in first.items():
+        assert torch.equal(v, again[k]), k
+    weights = os.path.join(REPO, "weights")
+    fn = build_frame_pipeline(
+        convert.load_detector_weights(
+            os.path.join(weights, "detector_256x448_f16.npz"), cuda_device),
+        convert.load_proxynet_weights(
+            os.path.join(weights, "proxynet_256_f16.npz"), cuda_device,
+            with_iuv=False),
+        convert.load_regressor_weights(
+            os.path.join(weights, "regressor_18ch_f16.npz"), cuda_device),
+        max_players=6, crop_wh=256, device=cuda_device)
+    a, b = fn(assets, first["image"]), fn(assets, first["image"])
+    assert a.vertices.shape == (2, 6, 6890, 3) and bool(a.valid.any())
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), name
