@@ -26,7 +26,16 @@ call and drives the port's two paths on the card:
   ``build_frame_pipeline`` (detector, box NMS, ROI align, ProxyNet
   ``weights/proxynet_512_f16.npz`` without its IUV head, the regressor) on
   2 synthetic frames of 512 x 896 with 22 players (K3 at 896^2), timed
-  warm, and held to the CPU on one frame.
+  warm, and held to the CPU on one frame;
+* the remaining fit stages and the GT-3D fit evaluations, each held to
+  its committed record: ``evaluate_fit_3d`` (8 x 8 crops at 512^2, the
+  100-iteration single-view fit), ``evaluate_fit_3d_multiview`` (2 x 8
+  players x 3 views from the scene factory, K3 once per 512^2 view; the
+  single-view arm and 3 rounds of the multi-view alternation, K1/K2 on
+  24 rows) and ``evaluate_fit_3d_track`` (2 x 4 players x 8 frames, one
+  K3 pass per batch, the shared-betas track fit on 32 rows);
+  ``broad_view_fit`` on one scene's broadcast view from its multi-view
+  result; and ``track_fit`` at bench.py:bench_track's 44 rows, timed warm.
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -46,6 +55,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -166,6 +176,45 @@ FRAME_PARITY_K = 4
 FRAME_CROP_TOL = 1e-5
 PREDICT_TOL = 1e-3
 FRAME_OUTPUTS = ("cam_wp", "betas", "pose_rotmats", "vertices", "joints2d")
+# The GT-3D fit evaluations, as their committed records ran them
+# (scripts/train_perception.py:_fit3d_cfg with the records' "fit_knobs"):
+# 2 batches at 512^2, the fits rendered at 256^2 (FIT_RENDER_WH); the
+# single-view benchmark on 8 crops a batch, the multi-view one on 8
+# players x 3 views (3 rounds of 50 + 50 iterations, and a 100-iteration
+# single-view arm on view 0), the track one on 4 players x 8 frames. The
+# single-view benchmark runs 8 batches here: its batches' init MPJPE-PA
+# spreads by 21 mm (std over 24 batches of the JAX key stream), and its
+# record's 2 batches (143.2 mm) lie 1.3 sigma of a 2-batch mean above
+# that stream's 24-batch mean (122.7 mm; the port's stream: 119.9), so
+# 2 batches of another stream leave the +-25% window by chance (the
+# port's first 2: 105.1); 8 bring the spread of the mean to ~7 mm
+# (scripts/fit3d_stream_spread.py, CPU).
+FIT3D_RECORDS = {"single": os.path.join("weights", "fit3d_benchmark_r04d.json"),
+                 "multiview": os.path.join("weights", "fit3d_r05",
+                                           "multiview.json"),
+                 "track": os.path.join("weights", "fit3d_r05", "track.json")}
+FIT3D_SEEDS = {"single": 20_000_000, "multiview": 30_000_000,
+               "track": 40_000_000}
+FIT3D_KNOBS = dict(iters=100, lr=1e-3, joint_conf_weighting=True,
+                   betas_prior=0.01, pose_prior=0.0, rot_ortho_prior=0.05,
+                   silh_warmup_iters=0, joints2d_scale=1e6)
+FIT3D_WH, FIT3D_BATCHES = 512, 2
+SV_BATCHES, SV_BATCH = 8, 8
+MV_BATCH, MV_VIEWS, MV_ROUNDS, MV_ITERS = 8, 3, 3, 50
+TRACK_BATCH, TRACK_FRAMES = 4, 8
+# Iterations of the profiled (shortened) runs that read each fit path's
+# device idle share.
+PROFILE_ITERS = 10
+# The broadcast-view fit's scene.
+BROAD_SEED = 50_000_000
+# bench.py:bench_track (BENCH_TRACK_PLAYERS=11, BENCH_TRACK_FRAMES=4): 44
+# rows, 512^2 targets, 256^2 render, 100 iterations.
+BENCH_TRACK_PLAYERS, BENCH_TRACK_FRAMES, BENCH_TRACK_ITERS = 11, 4, 100
+# Rows of each new K1/K2 shape held against the dense plain versions
+# (~0.2 s a row for K1, ~0.6 s for K2), and images of each scene pass
+# against the dense plain K3.
+K12_PLAIN_B = 4
+K3_SCENE_PLAIN_B = 2
 
 _T0 = time.time()
 
@@ -359,6 +408,10 @@ def main() -> int:
         from soccerplayershapepose_torch.ops.roi_align import roi_align
         from soccerplayershapepose_torch.pipeline.proxy import (
             create_proxy_representation)
+        from soccerplayershapepose_torch.fit import (
+            MultiViewInit, TrackInit, broad_view_fit, multi_view_fit,
+            track_fit)
+        from soccerplayershapepose_torch.train import fit3d, scenes
     except ImportError as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
@@ -366,7 +419,8 @@ def main() -> int:
     import numpy as np
     root = os.path.dirname(os.path.abspath(__file__))
     for path in (WEIGHTS, RECORD, E2E_RECORD, PN_WEIGHTS[256],
-                 PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD):
+                 PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD,
+                 *FIT3D_RECORDS.values()):
         if not os.path.isfile(os.path.join(root, path)):
             print("chip_smoke: %s is missing; the evaluations need the "
                   "committed weights and records" % path, file=sys.stderr)
@@ -550,6 +604,7 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.time() - t
     launches = dict(br.LAUNCHES)
+    k12_launches = {"fit": launches}
     for k, n in launches.items():
         check(n == FIT_ITERS, "%s launched %d times in %d iterations"
               % (k, n, FIT_ITERS))
@@ -577,12 +632,6 @@ def main() -> int:
 
     # -- timing: kernels at the fit's shape -------------------------------------
     t = time.time()
-    v2d = posed_verts2d(FIT_BATCH, FIT_RENDER_WH)
-    args, sigma_px, margin = band_inputs(v2d, FIT_RENDER_WH)
-    fc, cymin, cymax, cxmin, cxmax, lo, hi = args
-    s = br.launch_fwd(*args, FIT_RENDER_WH, sigma_px, margin)
-    gw = torch.randn(s.shape, generator=gen, device=dev)
-    gs = (gw * (1.0 - s)).contiguous()
 
     def time_ms(fn, reps: int, warmup: int = 2):
         """Mean ms per call over ``reps`` after ``warmup``, and the last
@@ -599,78 +648,98 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, out
 
-    launch = {
-        "band_raster_fwd": lambda n=None: br.launch_fwd(
-            *args, FIT_RENDER_WH, sigma_px, margin, pair_count=n),
-        "band_raster_bwd": lambda n=None: br.launch_bwd(
-            fc, gs, FIT_RENDER_WH, sigma_px, pair_count=n)}
-    plain = {
-        "band_raster_fwd": lambda: br.band_raster_fwd_plain(
-            fc, FIT_RENDER_WH, sigma_px),
-        "band_raster_bwd": lambda: br.band_raster_bwd_plain(
-            fc, gs, FIT_RENDER_WH, sigma_px)}
-    k_ms, k_out, plain_ms, plain_out, evaluated = {}, {}, {}, {}, {}
-    for k in launch:
-        k_ms[k], k_out[k] = time_ms(launch[k], 20)
-        plain_ms[k], plain_out[k] = time_ms(plain[k], 1, warmup=1)
-        evaluated[k] = pairs_evaluated(launch[k])
-    # The kernels against their plain versions at the main path's shape.
-    max_abs = {k: float((k_out[k] - plain_out[k]).abs().max()) for k in k_out}
-    k2_rel = rel_l2(k_out["band_raster_bwd"], plain_out["band_raster_bwd"])
-    check(all(bool(torch.isfinite(v).all()) for v in k_out.values()),
-          "a kernel's output is not finite at the fit shape")
-    check(max_abs["band_raster_fwd"] <= K1_TOL,
-          "K1 disagrees with its plain version at the fit shape: %.3g"
-          % max_abs["band_raster_fwd"])
-    check(k2_rel <= K2_TOL,
-          "K2 disagrees with its plain version at the fit shape: %.3g" % k2_rel)
+    def k12_case(v2d, wh, plain_b=None):
+        """K1 and K2 at one fit shape (B = v2d's rows, wh^2, sigma SIGMA):
+        timed, held against their plain versions on the first ``plain_b``
+        rows (default all) of the same launch, and each evaluating exactly
+        the pairs inside the faces' boxes padded by the support radius.
+        Returns the case's record; ``_launch`` and ``_out`` hold the
+        launchers and their outputs for the caller."""
+        b = v2d.shape[0]
+        pb = b if plain_b is None else plain_b
+        args, sigma_px, margin = band_inputs(v2d, wh)
+        fc, cymin, cymax, cxmin, cxmax, lo, hi = args
+        s = br.launch_fwd(*args, wh, sigma_px, margin)
+        gw = torch.randn(s.shape, generator=gen, device=dev)
+        gs = (gw * (1.0 - s)).contiguous()
+        launch = {
+            "band_raster_fwd": lambda n=None: br.launch_fwd(
+                *args, wh, sigma_px, margin, pair_count=n),
+            "band_raster_bwd": lambda n=None: br.launch_bwd(
+                fc, gs, wh, sigma_px, pair_count=n)}
+        plain = {
+            "band_raster_fwd": lambda: br.band_raster_fwd_plain(
+                fc[:pb], wh, sigma_px),
+            "band_raster_bwd": lambda: br.band_raster_bwd_plain(
+                fc[:pb], gs[:pb], wh, sigma_px)}
+        k_ms, k_out, plain_ms, plain_out, evaluated = {}, {}, {}, {}, {}
+        for k in launch:
+            k_ms[k], k_out[k] = time_ms(launch[k], 20)
+            plain_ms[k], plain_out[k] = time_ms(plain[k], 1, warmup=1)
+            evaluated[k] = pairs_evaluated(launch[k])
+        # The kernels against their plain versions at the path's shape.
+        max_abs = {k: float((k_out[k][:pb] - plain_out[k]).abs().max())
+                   for k in k_out}
+        k2_rel = rel_l2(k_out["band_raster_bwd"][:pb],
+                        plain_out["band_raster_bwd"])
+        check(all(bool(torch.isfinite(v).all()) for v in k_out.values()),
+              "a kernel's output is not finite at B=%d %d^2" % (b, wh))
+        check(max_abs["band_raster_fwd"] <= K1_TOL,
+              "K1 disagrees with its plain version at B=%d %d^2: %.3g"
+              % (b, wh, max_abs["band_raster_fwd"]))
+        check(k2_rel <= K2_TOL,
+              "K2 disagrees with its plain version at B=%d %d^2: %.3g"
+              % (b, wh, k2_rel))
+        # The work these inputs need: the pairs whose pixel centre lies in
+        # a live face's box padded by the support radius, whatever the
+        # design. The chunk-level count (every face of a chunk that meets
+        # an 8 x 32 tile, at all its pixels: the work of the first port's
+        # kernels) is kept beside it as history.
+        support = br.support_pairs(fc[..., br.BOX], wh)
+        check(all(n == support for n in evaluated.values()),
+              "the kernels evaluated %s pairs, the padded boxes hold %d at "
+              "B=%d %d^2" % (evaluated, support, b, wh))
+        n_chunks, n_bands = cymin.shape[1], lo.shape[1]
+        n_cv, all_chunk_visits = chunk_visits(
+            cymin, cymax, cxmin, cxmax, lo, hi, wh, br.BAND_H, br.TILE_W,
+            margin)
+        visits_chunk_level = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
+        f_pad = fc.shape[1]
+        # Each input read once: the triangles (24 bytes a face; the 80-byte
+        # records are derived from them), the chunk boxes and band bounds
+        # for K1, g(1 - S) for K2; each output written once.
+        tri_bytes = b * f_pad * 6 * 4
+        img_bytes = b * wh * wh * 4
+        bytes_moved = {
+            "band_raster_fwd": (tri_bytes + 4 * b * n_chunks * 4
+                                + 2 * b * n_bands * 4 + img_bytes),
+            "band_raster_bwd": 2 * tri_bytes + img_bytes}
+        bound = {k: roofline_ms(support * FLOPS_PER_PAIR[k], bytes_moved[k])
+                 for k in k_ms}
+        return {
+            "b": b, "wh": wh, "sigma": SIGMA, "plain_b": pb,
+            "support_radius_px": br.support_radius(sigma_px),
+            "support_pairs": support, "pairs_evaluated": evaluated,
+            "chunk_visits": n_cv, "chunk_visits_unpruned": all_chunk_visits,
+            "visits_chunk_level": visits_chunk_level,
+            # K1's gather: every x-tile of a band tests each face of the
+            # band's [lo, hi) once.
+            "k1_faces_scanned": int((hi - lo).clamp(min=0).sum()) * br.CHUNK
+            * (-(-wh // br.TILE_W)),
+            "k1_max_abs": max_abs["band_raster_fwd"], "k2_rel_l2": k2_rel,
+            "k2_max_abs": max_abs["band_raster_bwd"], "ms": k_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": {k: v[0] for k, v in bound.items()},
+            "bound_by": {k: v[1] for k, v in bound.items()},
+            "bound_ms_chunk_level": {
+                k: roofline_ms(visits_chunk_level * FLOPS_PER_PAIR[k],
+                               bytes_moved[k])[0] for k in k_ms},
+            "bytes_moved": bytes_moved, "max_abs": max_abs}
 
-    # The work these inputs need: the pairs whose pixel centre lies in a
-    # live face's box padded by the support radius, whatever the design.
-    # The chunk-level count (every face of a chunk that meets an 8 x 32
-    # tile, at all its pixels: the work of the first port's kernels) is
-    # kept beside it as history.
-    support = br.support_pairs(fc[..., br.BOX], FIT_RENDER_WH)
-    check(all(n == support for n in evaluated.values()),
-          "the kernels evaluated %s pairs, the padded boxes hold %d"
-          % (evaluated, support))
-    b, n_chunks = cymin.shape
-    n_bands = lo.shape[1]
-    n_cv, all_chunk_visits = chunk_visits(
-        cymin, cymax, cxmin, cxmax, lo, hi, FIT_RENDER_WH, br.BAND_H,
-        br.TILE_W, margin)
-    visits_chunk_level = n_cv * br.CHUNK * br.BAND_H * br.TILE_W
-    # K1's gather: every x-tile of a band tests each face of the band's
-    # [lo, hi) once.
-    k1_faces_scanned = int((hi - lo).clamp(min=0).sum()) * br.CHUNK * (
-        -(-FIT_RENDER_WH // br.TILE_W))
-    f_pad = fc.shape[1]
-    # Each input read once: the triangles (24 bytes a face; the 80-byte
-    # records are derived from them), the chunk boxes and band bounds for
-    # K1, g(1 - S) for K2; each output written once.
-    tri_bytes = b * f_pad * 6 * 4
-    img_bytes = b * FIT_RENDER_WH * FIT_RENDER_WH * 4
-    bytes_moved = {
-        "band_raster_fwd": (tri_bytes + 4 * b * n_chunks * 4
-                            + 2 * b * n_bands * 4 + img_bytes),
-        "band_raster_bwd": 2 * tri_bytes + img_bytes}
-    bound = {k: roofline_ms(support * FLOPS_PER_PAIR[k], bytes_moved[k])
-             for k in k_ms}
-    bound_chunk_level = {
-        k: roofline_ms(visits_chunk_level * FLOPS_PER_PAIR[k],
-                       bytes_moved[k])[0] for k in k_ms}
-    emit("timing", t, b=FIT_BATCH, wh=FIT_RENDER_WH, sigma=SIGMA,
-         band_h=br.BAND_H, tile_w=br.TILE_W, chunk=br.CHUNK,
-         support_radius_px=br.support_radius(sigma_px),
-         support_pairs=support, pairs_evaluated=evaluated,
-         chunk_visits=n_cv, chunk_visits_unpruned=all_chunk_visits,
-         visits_chunk_level=visits_chunk_level,
-         k1_faces_scanned=k1_faces_scanned,
-         k1_max_abs=max_abs["band_raster_fwd"], k2_rel_l2=k2_rel,
-         k2_max_abs=max_abs["band_raster_bwd"], ms=k_ms, plain_ms=plain_ms,
-         bound_ms={k: v[0] for k, v in bound.items()},
-         bound_by={k: v[1] for k, v in bound.items()},
-         bound_ms_chunk_level=bound_chunk_level, bytes_moved=bytes_moved,
+    k12 = [dict(k12_case(posed_verts2d(FIT_BATCH, FIT_RENDER_WH),
+                         FIT_RENDER_WH), path="fit")]
+    emit("timing", t, band_h=br.BAND_H, tile_w=br.TILE_W, chunk=br.CHUNK,
+         **{k: v for k, v in k12[0].items() if k != "max_abs"},
          launches_per_fit_iter={"band_raster_fwd": 1, "band_raster_bwd": 1},
          resources=resources, nvidia_smi=smi)
 
@@ -1342,6 +1411,328 @@ def main() -> int:
          profile=device_profile(lambda: fn(assets, frames)),
          nvidia_smi=smi)
 
+    # == The remaining fit stages and the GT-3D fit evaluations ============
+    fit3d_records = {}
+    for name, path in FIT3D_RECORDS.items():
+        with open(os.path.join(root, path)) as f:
+            fit3d_records[name] = json.load(f)
+    knobs = FitConfig(proxy_wh=FIT3D_WH, render_wh=FIT_RENDER_WH,
+                      **FIT3D_KNOBS)
+    # The first batch of the multi-view and the track evaluations, drawn
+    # as they draw it.
+    mv_draws0 = fit3d.sample_multiview_eval_draws(
+        torch.Generator().manual_seed(FIT3D_SEEDS["multiview"]), MV_BATCH,
+        MV_VIEWS, FIT3D_WH)
+    tr_draws0 = fit3d.sample_track_eval_draws(
+        torch.Generator().manual_seed(FIT3D_SEEDS["track"]), TRACK_BATCH,
+        TRACK_FRAMES, FIT3D_WH)
+    mv_scene0 = scenes.synth_scene_views(assets, mv_draws0.scene,
+                                         wh=FIT3D_WH)
+    tr_scene0 = scenes.synth_track_views(assets, tr_draws0.track,
+                                         wh=FIT3D_WH)
+
+    def rows_verts2d(body_pose, orient, betas, cam, wh):
+        """(R, V, 2) vertices of R fit rows as the fit renders them: in
+        the evaluations' FIT3D_WH^2 proxy frame, scaled to the wh^2
+        render."""
+        with torch.no_grad():
+            v2d = scenes.view_geometry(assets, body_pose, orient, betas, cam,
+                                       FIT3D_WH)["verts2d"]
+        return (v2d * (wh / FIT3D_WH)).contiguous()
+
+    def flat2(x):
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    # -- fit_views_parity: K1/K2 at the new fits' row counts -----------------
+    # The multi-view rows (8 players x 3 views) and the track rows (4 x 8)
+    # at their generating parameters, the track bench's 11 x 4 at its init;
+    # 256^2, sigma 1e-5. The plain versions (dense, ~0.6 s a row for K2)
+    # run on the first K12_PLAIN_B rows of the timed launch.
+    t = time.time()
+    views0 = mv_scene0["views"]
+    mv_rows = (mv_scene0["scene"]["body_pose"].repeat_interleave(
+                   MV_VIEWS, dim=0),
+               flat2(torch.stack([v["global_orient"] for v in views0], 1)),
+               mv_scene0["scene"]["betas"].repeat_interleave(MV_VIEWS, dim=0),
+               flat2(torch.stack([v["cam_wp"] for v in views0], 1)))
+    tr_rows = (flat2(tr_scene0["body_pose"]), flat2(tr_scene0["global_orient"]),
+               tr_scene0["betas"].repeat_interleave(TRACK_FRAMES, dim=0),
+               flat2(tr_scene0["cam_wp"]))
+    new_k12 = [
+        dict(k12_case(rows_verts2d(*mv_rows, FIT_RENDER_WH), FIT_RENDER_WH,
+                      K12_PLAIN_B), path="fit3d_mv_eval"),
+        dict(k12_case(rows_verts2d(*tr_rows, FIT_RENDER_WH), FIT_RENDER_WH,
+                      K12_PLAIN_B), path="fit3d_track_eval"),
+        dict(k12_case(posed_verts2d(BENCH_TRACK_PLAYERS * BENCH_TRACK_FRAMES,
+                                    FIT_RENDER_WH), FIT_RENDER_WH,
+                      K12_PLAIN_B), path="track_bench")]
+    check([r["b"] for r in new_k12] == [
+        MV_BATCH * MV_VIEWS, TRACK_BATCH * TRACK_FRAMES,
+        BENCH_TRACK_PLAYERS * BENCH_TRACK_FRAMES],
+        "the new fit shapes are %s rows" % [r["b"] for r in new_k12])
+    emit("fit_views_parity", t, k1_tol=K1_TOL, k2_tol=K2_TOL,
+         shapes=[{k: v for k, v in r.items() if k != "max_abs"}
+                 for r in new_k12], nvidia_smi=smi)
+    k12 += new_k12
+
+    # -- k3_scene_parity: K3 at the scene renders' 512^2 pass ----------------
+    # One view of 8 players (no occluder) and the track batch (4 players x
+    # 8 frames), as render_view z-buffers them; bit-equal to the dense
+    # plain version on the first 2 images of the timed launch.
+    t = time.time()
+    k3_scenes = []
+    for path, rows in (("fit3d_mv_eval", tuple(
+            x.reshape((MV_BATCH, MV_VIEWS) + tuple(x.shape[1:]))[:, 0]
+            for x in mv_rows)), ("fit3d_track_eval", tr_rows)):
+        geo = scenes.view_geometry(assets, *rows, FIT3D_WH)
+        scn = {"verts2d": geo["verts2d"], "verts_z": geo["verts_z"],
+               "faces": assets.faces}
+        k3_scenes.append(dict(k3_case(scn, rows[0].shape[0], FIT3D_WH, 1.0,
+                                      K3_SCENE_PLAIN_B), path=path))
+    check([r["b"] for r in k3_scenes] == [MV_BATCH,
+                                          TRACK_BATCH * TRACK_FRAMES],
+          "the scene passes hold %s images" % [r["b"] for r in k3_scenes])
+    emit("k3_scene_parity", t, flops_per_pair=K3_FLOPS_PER_PAIR,
+         shapes=k3_scenes, launches_per_path_pass=1, nvidia_smi=smi)
+    k3 += k3_scenes
+
+    def counted(fn):
+        """``fn()`` with every kernel's count set to 0 just before it:
+        (its result, wall s, K1/K2 launches, K3 launches)."""
+        torch.cuda.synchronize()
+        br.reset_launch_counts()
+        zb.reset_launch_counts()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.time() - t0, dict(br.LAUNCHES),
+                zb.LAUNCHES["zbuffer_bary"])
+
+    def hold_to_record(res, record, arms, what):
+        """Each arm's MPJPE-PA and PVE-PA within RECORD_REL of the
+        committed record; returns {metric: [value, record]}."""
+        out = {}
+        for arm in arms:
+            for m in ("mpjpe_pa_mm", "pve_pa_mm"):
+                k = "%s_%s" % (arm, m)
+                check(np.isfinite(res[k]), "%s: %s is not finite" % (what, k))
+                check(abs(res[k] - record[k]) <= RECORD_REL * record[k],
+                      "%s %s %.2f is not within %d%% of the record %.2f"
+                      % (what, k, res[k], RECORD_REL * 100, record[k]))
+                out[k] = [res[k], record[k]]
+        return out
+
+    k3_fit_launches = {}
+
+    # -- fit3d_eval: the single-view fit against the generating 3-D ----------
+    t = time.time()
+    res_sv, sv_s, sv_k12, sv_k3 = counted(lambda: straps.evaluate_fit_3d(
+        model, assets, n_batches=SV_BATCHES, batch=SV_BATCH, wh=FIT3D_WH,
+        fit_cfg=knobs, seed=FIT3D_SEEDS["single"], device=dev))
+    iters = FIT3D_KNOBS["iters"]
+    check(sv_k12 == {"band_raster_fwd": SV_BATCHES * iters,
+                     "band_raster_bwd": SV_BATCHES * iters},
+          "fit3d_eval launched K1/K2 %s times" % sv_k12)
+    check(sv_k3 == 2 * SV_BATCHES, "fit3d_eval launched K3 %d times"
+          % sv_k3)
+    held = hold_to_record(res_sv, fit3d_records["single"], ("init", "fit"),
+                          "fit3d_eval")
+    k12_launches["fit3d_eval"] = sv_k12
+    k3_fit_launches["fit3d_eval"] = sv_k3
+    emit("fit3d_eval", t, n_images=res_sv["n_images"], wh=FIT3D_WH,
+         render_wh=FIT_RENDER_WH, iters=iters, fit_knobs=FIT3D_KNOBS,
+         wall_s=round(sv_s, 4), players_per_s=round(res_sv["n_images"]
+                                                    / sv_s, 3),
+         k1_k2_launches=sv_k12, k3_launches=sv_k3, held_to_record=held,
+         record=FIT3D_RECORDS["single"], record_rel_tol=RECORD_REL,
+         metrics=res_sv, profile_note="one batch, %d iterations"
+         % PROFILE_ITERS, profile=device_profile(
+             lambda: straps.evaluate_fit_3d(
+                 model, assets, n_batches=1, batch=SV_BATCH, wh=FIT3D_WH,
+                 fit_cfg=dataclasses.replace(knobs, iters=PROFILE_ITERS),
+                 seed=FIT3D_SEEDS["single"], device=dev)),
+         nvidia_smi=smi)
+
+    # -- fit3d_mv_eval: init vs single-view vs multi-view --------------------
+    t = time.time()
+    res_mv, mv_s, mv_k12, mv_k3 = counted(
+        lambda: fit3d.evaluate_fit_3d_multiview(
+            model, assets, n_batches=FIT3D_BATCHES, batch=MV_BATCH,
+            n_views=MV_VIEWS, wh=FIT3D_WH, fit_cfg=knobs, rounds=MV_ROUNDS,
+            iters_per_phase=MV_ITERS, seed=FIT3D_SEEDS["multiview"],
+            device=dev))
+    # Per batch: the 100-iteration single-view arm, 3 rounds of 50 + 50,
+    # and one forward-only evaluation of the final parameters (K1 alone).
+    mv_iters = iters + MV_ROUNDS * 2 * MV_ITERS
+    check(mv_k12 == {"band_raster_fwd": FIT3D_BATCHES * (mv_iters + 1),
+                     "band_raster_bwd": FIT3D_BATCHES * mv_iters},
+          "fit3d_mv_eval launched K1/K2 %s times" % mv_k12)
+    check(mv_k3 == FIT3D_BATCHES * MV_VIEWS,
+          "fit3d_mv_eval launched K3 %d times" % mv_k3)
+    held = hold_to_record(res_mv, fit3d_records["multiview"],
+                          ("init", "sv", "mv"), "fit3d_mv_eval")
+    check(res_mv["mv_mpjpe_pa_mm"] < res_mv["init_mpjpe_pa_mm"],
+          "the multi-view fit does not lower MPJPE-PA: %.2f vs init %.2f"
+          % (res_mv["mv_mpjpe_pa_mm"], res_mv["init_mpjpe_pa_mm"]))
+    k12_launches["fit3d_mv_eval"] = mv_k12
+    k3_fit_launches["fit3d_mv_eval"] = mv_k3
+    emit("fit3d_mv_eval", t, n_players=res_mv["n_players"],
+         n_views=MV_VIEWS, wh=FIT3D_WH, render_wh=FIT_RENDER_WH,
+         rounds=MV_ROUNDS, iters_per_phase=MV_ITERS, sv_iters=iters,
+         wall_s=round(mv_s, 4),
+         players_per_s=round(res_mv["n_players"] / mv_s, 3),
+         k1_k2_launches=mv_k12, k3_launches=mv_k3, held_to_record=held,
+         record=FIT3D_RECORDS["multiview"], record_rel_tol=RECORD_REL,
+         metrics={k: v for k, v in res_mv.items() if k != "note"},
+         profile_note="one batch, %d single-view iterations, 1 round of "
+         "%d + %d" % (PROFILE_ITERS, PROFILE_ITERS, PROFILE_ITERS),
+         profile=device_profile(lambda: fit3d.evaluate_fit_3d_multiview(
+             model, assets, n_batches=1, batch=MV_BATCH, n_views=MV_VIEWS,
+             wh=FIT3D_WH, fit_cfg=dataclasses.replace(
+                 knobs, iters=PROFILE_ITERS), rounds=1,
+             iters_per_phase=PROFILE_ITERS, seed=FIT3D_SEEDS["multiview"],
+             device=dev)),
+         nvidia_smi=smi)
+
+    # -- fit3d_track_eval: init vs the shared-betas track fit ----------------
+    t = time.time()
+    res_tr, tr_s, tr_k12, tr_k3 = counted(
+        lambda: fit3d.evaluate_fit_3d_track(
+            model, assets, n_batches=FIT3D_BATCHES, batch=TRACK_BATCH,
+            n_frames=TRACK_FRAMES, wh=FIT3D_WH, fit_cfg=knobs,
+            seed=FIT3D_SEEDS["track"], device=dev))
+    check(tr_k12 == {"band_raster_fwd": FIT3D_BATCHES * iters,
+                     "band_raster_bwd": FIT3D_BATCHES * iters},
+          "fit3d_track_eval launched K1/K2 %s times" % tr_k12)
+    check(tr_k3 == FIT3D_BATCHES, "fit3d_track_eval launched K3 %d times"
+          % tr_k3)
+    held = hold_to_record(res_tr, fit3d_records["track"], ("init", "fit"),
+                          "fit3d_track_eval")
+    k12_launches["fit3d_track_eval"] = tr_k12
+    k3_fit_launches["fit3d_track_eval"] = tr_k3
+    emit("fit3d_track_eval", t, n_players=res_tr["n_players"],
+         n_frames=TRACK_FRAMES, wh=FIT3D_WH, render_wh=FIT_RENDER_WH,
+         iters=iters, wall_s=round(tr_s, 4),
+         players_per_s=round(res_tr["n_players"] / tr_s, 3),
+         k1_k2_launches=tr_k12, k3_launches=tr_k3, held_to_record=held,
+         record=FIT3D_RECORDS["track"], record_rel_tol=RECORD_REL,
+         metrics={k: v for k, v in res_tr.items() if k != "note"},
+         profile_note="one batch, %d iterations" % PROFILE_ITERS,
+         profile=device_profile(lambda: fit3d.evaluate_fit_3d_track(
+             model, assets, n_batches=1, batch=TRACK_BATCH,
+             n_frames=TRACK_FRAMES, wh=FIT3D_WH,
+             fit_cfg=dataclasses.replace(knobs, iters=PROFILE_ITERS),
+             seed=FIT3D_SEEDS["track"], device=dev)),
+         nvidia_smi=smi)
+
+    # -- broad_fit: the broadcast view, pose and shape from the multi-view ---
+    # One scene of 8 players, 3 narrow views and the broad one (clean
+    # observations, scores 1); the multi-view fit from the regressor's
+    # per-view init gives the pose and betas, the regressor on the broad
+    # crop the orient and camera; broad_view_fit at the stage's lr 0.01 for
+    # its 100 iterations, 256^2 render.
+    t = time.time()
+    b_draws = scenes.sample_scene_views_draws(
+        torch.Generator().manual_seed(BROAD_SEED), MV_BATCH, MV_VIEWS)
+    (b_scene, _, _, b_k3) = counted(lambda: scenes.synth_scene_views(
+        assets, b_draws, wh=FIT3D_WH))
+    check(b_k3 == MV_VIEWS + 1, "the broad scene launched K3 %d times"
+          % b_k3)
+
+    def scored(j2d):
+        return torch.cat([j2d, torch.ones_like(j2d[..., :1])], dim=-1)
+
+    b_sil = torch.stack([v["silhouette"] for v in b_scene["views"]], 1)
+    b_j2d = scored(torch.stack([v["joints2d"] for v in b_scene["views"]], 1))
+    cam_f, rot_f, betas_f = straps.infer_rotmats(
+        model, assets, create_proxy_representation(
+            flat2(b_sil), flat2(b_j2d)[..., :2], in_wh=FIT3D_WH))
+    rot_v = rot_f.reshape(MV_BATCH, MV_VIEWS, 24, 3, 3)
+    mv_res, mv_fit_s, b_mv_k12, _ = counted(lambda: multi_view_fit(
+        assets, MultiViewInit(rot_v[:, :, 1:], rot_v[:, :, :1],
+                              betas_f.reshape(MV_BATCH, MV_VIEWS, 10),
+                              cam_f.reshape(MV_BATCH, MV_VIEWS, 3)),
+        b_sil, b_j2d, knobs, rounds=MV_ROUNDS, iters_per_phase=MV_ITERS,
+        device=dev))
+    broad = b_scene["broad"]
+    b_cam, b_rot, _ = straps.infer_rotmats(
+        model, assets, create_proxy_representation(
+            broad["silhouette"], broad["joints2d"], in_wh=FIT3D_WH))
+    broad_cfg = FitConfig(iters=cfg.BROAD_VIEW_ITERS, lr=cfg.BROAD_VIEW_LR,
+                          proxy_wh=FIT3D_WH, render_wh=FIT_RENDER_WH)
+    b_res, broad_s, b_k12, _ = counted(lambda: broad_view_fit(
+        assets, mv_res.body_pose, mv_res.betas, b_rot[:, :1], b_cam,
+        broad["silhouette"], scored(broad["joints2d"]), broad_cfg,
+        device=dev))
+    check(torch.equal(b_res.body_pose, mv_res.body_pose)
+          and torch.equal(b_res.betas, mv_res.betas),
+          "broad_view_fit changed the pose or the betas")
+    check(b_k12 == {"band_raster_fwd": cfg.BROAD_VIEW_ITERS,
+                    "band_raster_bwd": cfg.BROAD_VIEW_ITERS},
+          "broad_view_fit launched K1/K2 %s times" % b_k12)
+    for name in ("silh_iou", "joint_err", "init_silh_iou", "init_joint_err",
+                 "global_orient", "cam_wp"):
+        check(bool(torch.isfinite(getattr(b_res, name)).all()),
+              "broad_view_fit: %s is not finite" % name)
+    k12_launches["broad_fit"] = {k: b_mv_k12[k] + b_k12[k] for k in b_k12}
+    k3_fit_launches["broad_fit"] = b_k3
+    emit("broad_fit", t, players=MV_BATCH, views=MV_VIEWS, wh=FIT3D_WH,
+         render_wh=FIT_RENDER_WH, iters=cfg.BROAD_VIEW_ITERS,
+         lr=cfg.BROAD_VIEW_LR, wall_s=round(broad_s, 4),
+         multi_view_wall_s=round(mv_fit_s, 4),
+         init_iou=float(b_res.init_silh_iou.mean()),
+         best_iou=float(b_res.silh_iou.mean()),
+         init_joint_err=float(b_res.init_joint_err.mean()),
+         best_joint_err=float(b_res.joint_err.mean()),
+         best_iter_mean=float(b_res.best_iter.float().mean()),
+         multi_view_iou=float(mv_res.silh_iou.mean()),
+         multi_view_joint_err=float(mv_res.joint_err.mean()),
+         pose_betas_unchanged=True, k1_k2_launches={
+             "multi_view_fit": b_mv_k12, "broad_view_fit": b_k12},
+         k3_launches=b_k3, nvidia_smi=smi)
+
+    # -- track_bench: bench.py:bench_track's shape, warm ---------------------
+    t = time.time()
+    n_b, n_t = BENCH_TRACK_PLAYERS, BENCH_TRACK_FRAMES
+    aa, betas, cam, sil, j2d = bench_scene(n_b * n_t)
+    rot = batch_rodrigues(torch.from_numpy(aa)).reshape(n_b, n_t, 24, 3, 3)
+    tb_init = TrackInit(rot[:, :, 1:], rot[:, :, :1],
+                        torch.from_numpy(betas).reshape(n_b, n_t, 10),
+                        torch.from_numpy(cam).reshape(n_b, n_t, 3))
+    tb_sil = torch.from_numpy(sil).reshape(n_b, n_t, PROXY_WH, PROXY_WH)
+    tb_j2d = torch.from_numpy(j2d).reshape(n_b, n_t, 17, 2)
+    track_fit(assets, tb_init, tb_sil, tb_j2d,
+              FitConfig(iters=2, render_wh=FIT_RENDER_WH), device=dev)
+    tb_res, tb_s, tb_k12, _ = counted(lambda: track_fit(
+        assets, tb_init, tb_sil, tb_j2d,
+        FitConfig(iters=BENCH_TRACK_ITERS, render_wh=FIT_RENDER_WH),
+        device=dev))
+    check(tb_k12 == {"band_raster_fwd": BENCH_TRACK_ITERS,
+                     "band_raster_bwd": BENCH_TRACK_ITERS},
+          "the track bench launched K1/K2 %s times" % tb_k12)
+    for name, shape in (("betas", (n_b, 10)), ("silh_iou", (n_b,)),
+                        ("joint_err", (n_b,)),
+                        ("body_pose", (n_b, n_t, 23, 3, 3))):
+        v = getattr(tb_res, name)
+        check(tuple(v.shape) == shape and bool(torch.isfinite(v).all()),
+              "track bench: %s is %s, not finite %s" % (name,
+                                                        tuple(v.shape),
+                                                        shape))
+    k12_launches["track_bench"] = tb_k12
+    emit("track_bench", t, players=n_b, frames=n_t, rows=n_b * n_t,
+         proxy_wh=PROXY_WH, render_wh=FIT_RENDER_WH,
+         iters=BENCH_TRACK_ITERS, wall_s=round(tb_s, 4),
+         players_per_s=round(n_b / tb_s, 3),
+         player_frames_per_s=round(n_b * n_t / tb_s, 2),
+         ms_per_iter=round(tb_s / BENCH_TRACK_ITERS * 1e3, 3),
+         best_iou=float(tb_res.silh_iou.mean()),
+         best_joint_err=float(tb_res.joint_err.mean()),
+         k1_k2_launches=tb_k12, profile_note="%d iterations"
+         % PROFILE_ITERS, profile=device_profile(lambda: track_fit(
+             assets, tb_init, tb_sil, tb_j2d,
+             FitConfig(iters=PROFILE_ITERS, render_wh=FIT_RENDER_WH),
+             device=dev)), nvidia_smi=smi)
+
     # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
     k3_launches_pn = {}
     for wh in PN_SHAPES:
@@ -1394,29 +1785,54 @@ def main() -> int:
              record_rel_tol=RECORD_REL, nvidia_smi=smi)
 
     kernels = []
+    # K1 and K2 run once per fit iteration (K1 alone in a forward-only
+    # evaluation) on six paths: the 22-player fit, the three GT-3D
+    # evaluations, the broadcast-view fit (with the multi-view fit its
+    # pose comes from) and the track bench. Their times are the mean per
+    # launch over the path shapes of "shapes" (the plain versions' on
+    # plain_b of the b rows), their pairs the sum over them.
     for name, line in (("band_raster_fwd", 33), ("band_raster_bwd", 475)):
+        by_path = {p: n[name] for p, n in k12_launches.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "soccerplayershapepose_torch/csrc/band_raster.cu",
             "replaces": "soccerplayershapepose_tpu/render/pallas_raster.py:%d"
                         % line,
-            "launches": launches[name], "max_abs_err": max_abs[name],
-            "ms": k_ms[name], "plain_ms": plain_ms[name],
-            "bound_ms": bound[name][0], "bound_by": bound[name][1],
-            "library_ms": None, "support_pairs": support,
-            "pairs_evaluated": evaluated[name],
-            "bound_ms_chunk_level": bound_chunk_level[name]})
-    # K3 runs once at each pass shape per batch, on six paths: the
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs"][name] for r in k12),
+            "ms": sum(r["ms"][name] for r in k12) / len(k12),
+            "plain_ms": sum(r["plain_ms"][name] for r in k12) / len(k12),
+            "bound_ms": sum(r["bound_ms"][name] for r in k12) / len(k12),
+            "bound_by": ("operations" if all(
+                r["bound_by"][name] == "operations" for r in k12)
+                else "bytes"),
+            "library_ms": None,
+            "support_pairs": sum(r["support_pairs"] for r in k12),
+            "pairs_evaluated": sum(r["pairs_evaluated"][name] for r in k12),
+            "shapes": [{
+                "path": r["path"], "b": r["b"], "wh": r["wh"],
+                "ms": r["ms"][name], "plain_b": r["plain_b"],
+                "plain_ms": r["plain_ms"][name],
+                "bound_ms": r["bound_ms"][name],
+                "support_pairs": r["support_pairs"],
+                "pairs_evaluated": r["pairs_evaluated"][name],
+                "bound_ms_chunk_level": r["bound_ms_chunk_level"][name]}
+                for r in k12]})
+    # K3 runs once at each pass shape per batch, on ten paths: the
     # synthetic evaluation and ProxyNet's at 512² (512² and 128² passes),
     # the e2e evaluation and ProxyNet's at 256² (256² and 64²), the
-    # detector's evaluation (one 448² pass per batch of 16 frames) and the
-    # frame pipeline's synthesis (one 896² pass for its 2 frames). Its
-    # times are the mean per launch over the six pass shapes, its pairs the
+    # detector's evaluation (one 448² pass per batch of 16 frames), the
+    # frame pipeline's synthesis (one 896² pass for its 2 frames), the
+    # single-view GT-3D evaluation's crops (512², 128²), and the scene
+    # renders (one 512² pass per view, or per track batch) of the
+    # multi-view and track evaluations and the broadcast-view fit. Its
+    # times are the mean per launch over the pass shapes, its pairs the
     # sum over them; "shapes" gives each (the plain version's time on
     # plain_b of the b images), "launches_by_path" each path's count.
     k3_by_path = {"synth_eval": k3_launches, "e2e_eval": k3_launches_e2e,
                   "detector_eval": k3_launches_det,
-                  "frame_pipeline_synthesis": k3_launches_frame}
+                  "frame_pipeline_synthesis": k3_launches_frame,
+                  **k3_fit_launches}
     k3_by_path.update({"proxynet_eval_%d" % wh: n
                        for wh, n in k3_launches_pn.items()})
     kernels.append({

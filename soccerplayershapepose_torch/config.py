@@ -48,6 +48,10 @@ FITTING_TRAINABLE_BODY_JOINTS = tuple(
     j for j in range(NUM_BODY_JOINTS) if j not in FITTING_FROZEN_BODY_JOINTS)
 
 SINGLE_VIEW_ITERS = 100
+MULTI_VIEW_ITERS = 50           # per phase; 3 alternating rounds
+MULTI_VIEW_ROUNDS = 3
+BROAD_VIEW_ITERS = 100
+BROAD_VIEW_LR = 0.01
 FITTING_LR = 0.001
 FITTING_INIT_LOSS_WEIGHTS = {"joints2D": 1.0, "silhouette": 1000000.0}
 MAX_PLAYERS_PER_FRAME = 22

@@ -14,6 +14,11 @@ extractor (``pipeline/extract.py``), and the extracted silhouette and
 keypoints, not the ground truth, build the regressor's proxy; crops whose
 extraction fails are left out and counted.
 
+:func:`evaluate_fit_3d` is the GT-3D benchmark of the single-view fit: the
+regressor's init and the fit from it (:func:`synth_fit_batch`'s corrupted
+silhouette and keypoints as the fit's targets), each against the
+generating parameters.
+
 Randomness is explicit, as in ``train/synth.py``: samplers draw into
 NamedTuples and the batch functions are deterministic in those draws.
 """
@@ -27,6 +32,8 @@ import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
+from soccerplayershapepose_torch.fit.engine import FitConfig, FitInit
+from soccerplayershapepose_torch.fit.single_view import single_view_fit
 from soccerplayershapepose_torch.models.ief import default_initial_params
 from soccerplayershapepose_torch.models.regressor import SingleInputRegressor
 from soccerplayershapepose_torch.ops.alignment import (
@@ -68,8 +75,13 @@ class CorruptionDraws(NamedTuple):
     cut_half: torch.Tensor     # (C, B, 2) U[0.03·wh, CUTOUT_FRAC·wh/2) px
 
 
-def sample_corruption_draws(gen: torch.Generator, b: int,
-                            wh: int) -> CorruptionDraws:
+def sample_corruption_draws(gen: torch.Generator, b: int, wh: int,
+                            drop_p: float = DROP_P) -> CorruptionDraws:
+    """The draws of one batch's corruption. ``drop_p`` is the per-joint
+    probability of a missed detection; the fit targets take 0.0. The
+    dropout uniforms are drawn whatever it is, so the other draws do not
+    shift (as JAX's ``bernoulli(key, 0.0)`` draws all False from an
+    unchanged key stream)."""
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=gen, device=gen.device) \
             * (hi - lo) + lo
@@ -77,7 +89,7 @@ def sample_corruption_draws(gen: torch.Generator, b: int,
     c, j = MAX_CUTOUTS, cfg.NUM_KPRCNN_JOINTS
     return CorruptionDraws(
         jitter=torch.randn((b, j, 2), generator=gen, device=gen.device),
-        dropped=uniform((b, j), 0.0, 1.0) < DROP_P,
+        dropped=uniform((b, j), 0.0, 1.0) < drop_p,
         score_noise=torch.randn((b, j), generator=gen, device=gen.device),
         cut_active=uniform((c, b), 0.0, 1.0) < CUTOUT_P,
         cut_centre=uniform((c, b, 2), 0.0, float(wh)),
@@ -243,6 +255,119 @@ def evaluate_regressor(regressor: SingleInputRegressor, assets: SMPLAssets,
     out.update(n_images=int(sum(d.crop.body.cam_wp.shape[0] for d in draws)),
                eval_wh=wh,
                corrupt_eval=any(d.corruption is not None for d in draws))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The GT-3D benchmark of the single-view fit
+# ---------------------------------------------------------------------------
+
+def sample_fit_draws(gen: torch.Generator, b: int, wh: int,
+                     corrupt: bool = True) -> RegressorDraws:
+    """The draws of one :func:`synth_fit_batch`: crops with occluders and,
+    with ``corrupt``, jitter, scores and cut-outs but no joint dropout (the
+    fit loss takes raw coordinates without confidence gating)."""
+    return RegressorDraws(
+        sample_crop_draws(gen, b),
+        sample_corruption_draws(gen, b, wh, drop_p=0.0) if corrupt else None)
+
+
+def synth_fit_batch(assets: SMPLAssets, draws: RegressorDraws,
+                    wh: int = 512) -> dict:
+    """A held-out batch of the GT-3D fitting benchmark from its draws: the
+    batch of :func:`synth_regressor_batch` plus the (corrupted) silhouette
+    and keypoints as fit targets in the wh² render frame, the same
+    observations that built the proxy. ``joints2d_fit (B, 17, 3)`` carries
+    the score channel (:func:`corrupt_proxy_inputs`; 1 without
+    corruption) for confidence-weighted fitting. The draws come from
+    :func:`sample_fit_draws`: their ``dropped`` joints apply as drawn."""
+    data = render_crop_batch(assets, draws.crop, wh, return_params=True)
+    sil, joints = data["silhouette"], data["joints2d"]
+    scores = torch.ones(joints.shape[:2], device=joints.device)
+    if draws.corruption is not None:
+        sil, joints, scores = corrupt_proxy_inputs(
+            draws_to(draws.corruption, sil.device), sil, joints,
+            return_scores=True)
+    scale = cfg.PROXY_REP_INPUT_WH / float(wh)
+    return {"proxy": create_proxy_representation(sil, joints, in_wh=wh),
+            "silhouette": sil,                        # fit target (wh²)
+            "joints2d_fit": torch.cat([joints, scores[..., None]], dim=-1),
+            "joints2d": data["joints2d"] * scale,     # clean GT (512 px)
+            "target_pose": torch.cat([data["global_orient"],
+                                      data["body_pose"]], dim=1),
+            "target_betas": data["betas"], "gt_cam_wp": data["cam_wp"]}
+
+
+@torch.no_grad()
+def infer_rotmats(regressor: SingleInputRegressor, assets: SMPLAssets,
+                  proxy: torch.Tensor):
+    """The regressor's ``(cam_wp (B, 3), rotmats (B, 24, 3, 3), betas
+    (B, 10))`` for a batch of proxies."""
+    init = default_initial_params(assets.mean_pose_rot6d, assets.mean_shape)
+    cam_wp, pose6d, betas = regressor(proxy, init)
+    return (cam_wp, rot6d_to_rotmat(pose6d.reshape(-1, cfg.NUM_JOINTS, 6)),
+            betas)
+
+
+def metrics_float(assets: SMPLAssets, *args) -> dict:
+    """:func:`rotmat_metrics` as Python floats."""
+    with torch.no_grad():
+        return {k: float(v) for k, v in rotmat_metrics(assets, *args).items()}
+
+
+def default_fit3d_config(wh: int):
+    """The GT-3D benchmarks' default fit: the stage's settings at a
+    min(wh, 256)² render."""
+    return FitConfig(proxy_wh=wh, render_wh=min(wh, 256))
+
+
+def evaluate_fit_3d(regressor: SingleInputRegressor, assets: SMPLAssets,
+                    n_batches: int = 1, batch: int = 8, wh: int = 512,
+                    corrupt: bool = True, fit_cfg=None,
+                    seed: int = 20_000_000,
+                    draws: Optional[Sequence[RegressorDraws]] = None,
+                    device: DeviceLike = None) -> dict:
+    """Ground-truth 3-D benchmark of the single-view fit on ``device``
+    (None: the CUDA card): the PVE/MPJPE family of the regressor's init
+    and of the fit from it, against the generating parameters, plus the
+    fit's 2-D diagnostics (silhouette IoU, joint px error at the first and
+    the best iterate), each the mean over ``n_batches`` batches of
+    ``batch`` crops at ``wh``². The draws come from a CPU generator seeded
+    with ``seed`` unless ``draws`` (one per batch) are given."""
+    dev = default_device(device)
+    assets = on_device(assets, dev)
+    regressor = regressor.to(dev).eval()
+    fit_cfg = fit_cfg or default_fit3d_config(wh)
+    if draws is None:
+        gen = torch.Generator().manual_seed(seed)
+        draws = [sample_fit_draws(gen, batch, wh, corrupt)
+                 for _ in range(n_batches)]
+    sums: Optional[dict] = None
+    for d in draws:
+        b = synth_fit_batch(assets, d, wh=wh)
+        cam_wp, rotmats, betas = infer_rotmats(regressor, assets, b["proxy"])
+        gt = (b["target_pose"], b["target_betas"], b["joints2d"])
+        m_init = metrics_float(assets, cam_wp, rotmats, betas, *gt)
+        res = single_view_fit(
+            assets, FitInit(body_pose=rotmats[:, 1:],
+                            global_orient=rotmats[:, :1], betas=betas,
+                            cam_wp=cam_wp),
+            b["silhouette"], b["joints2d_fit"], fit_cfg, device=dev)
+        m_fit = metrics_float(
+            assets, res.cam_wp, torch.cat([res.global_orient, res.body_pose],
+                                          dim=1), res.betas, *gt)
+        m = {**{f"init_{k}": v for k, v in m_init.items()},
+             **{f"fit_{k}": v for k, v in m_fit.items()},
+             "fit_silh_iou": float(res.silh_iou.mean()),
+             "init_silh_iou": float(res.init_silh_iou.mean()),
+             "fit_joint_err_px": float(res.joint_err.mean()),
+             "init_joint_err_px": float(res.init_joint_err.mean())}
+        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+    out = {k: v / len(draws) for k, v in sums.items()}
+    out.update(n_images=int(sum(d.crop.body.cam_wp.shape[0] for d in draws)),
+               eval_wh=wh,
+               corrupt_eval=any(d.corruption is not None for d in draws),
+               fit_iters=fit_cfg.iters)
     return out
 
 

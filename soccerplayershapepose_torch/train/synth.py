@@ -328,12 +328,14 @@ def sample_photometric_draws(gen: torch.Generator, b: int, h: int,
 
 
 def draws_to(draws, device: torch.device):
-    """A draws tuple (nested NamedTuples of tensors, None for what was not
-    drawn) on ``device``."""
+    """A draws tuple (nested NamedTuples and tuples of tensors, None for
+    what was not drawn) on ``device``."""
     if draws is None:
         return None
     if isinstance(draws, torch.Tensor):
         return draws.to(device)
+    if not hasattr(draws, "_fields"):
+        return tuple(draws_to(d, device) for d in draws)
     return type(draws)(*(draws_to(d, device) for d in draws))
 
 
