@@ -35,7 +35,17 @@ call and drives the port's two paths on the card:
   24 rows) and ``evaluate_fit_3d_track`` (2 x 4 players x 8 frames, one
   K3 pass per batch, the shared-betas track fit on 32 rows);
   ``broad_view_fit`` on one scene's broadcast view from its multi-view
-  result; and ``track_fit`` at bench.py:bench_track's 44 rows, timed warm.
+  result; and ``track_fit`` at bench.py:bench_track's 44 rows, timed warm;
+* the folder-tree stages: a tree of 4 scenes x 6 players x 3 views and the
+  broad view at 512^2 from the scene factory (K3) and the tree writer;
+  the single-view, multi-view and broadcast-view stages and the metric
+  roll-ups on it, at the JAX package's mint configuration, held to
+  ``weights/distill_r05/mint_summary.json``; the single-view stage at its
+  own defaults (32 rows, 512^2 render: K1/K2 at a new shape) with its
+  mesh overlays; ``create_proxy_stage`` (ProxyNet at 512^2 with flip TTA)
+  on one RGB scene and ``predict_stage`` on what it wrote; and the
+  command line (``python -m soccerplayershapepose_torch``) as
+  subprocesses on a 1-scene tree.
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -59,9 +69,11 @@ import dataclasses
 import faulthandler
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 BUDGET_S = 900
@@ -215,14 +227,48 @@ BENCH_TRACK_PLAYERS, BENCH_TRACK_FRAMES, BENCH_TRACK_ITERS = 11, 4, 100
 # against the dense plain K3.
 K12_PLAIN_B = 4
 K3_SCENE_PLAIN_B = 2
+# The folder-tree stages on a tree from the scene factory: the JAX
+# package's mint run (weights/distill_r05/mint_summary.json:
+# scripts/distill_circle.py make-data and mint at --wh 512, batch 16, the
+# stage fit configuration of its _fit_cfg) had 8 games x 4 scenes x 6
+# players x 3 views and the broad view; one game here.
+MINT_RECORD = os.path.join("weights", "distill_r05", "mint_summary.json")
+TREE_SEED = 60_000_000
+TREE_SCENES, TREE_PLAYERS, TREE_VIEWS, TREE_WH = 4, 6, 3, 512
+MINT_KNOBS = dict(lr=1e-3, proxy_wh=TREE_WH, render_wh=256,
+                  joints2d_scale=1e6, joint_conf_weighting=True,
+                  betas_prior=0.01, rot_ortho_prior=0.05)
+MINT_BATCH = 16
+MINT_MV_BATCH = 4         # max(batch // 4, 2), as the mint ran it
+STAGE_BATCH = 32          # single_view_optimization's own default
+# Rows of K1/K2 at the default stage's 512^2 shape held against the dense
+# plain versions (0.79 s a row for K1, 2.24 s for K2 on an H100 80GB HBM3
+# at 700 W).
+K12_DEFAULT_PLAIN_B = 2
+# create_proxy: one RGB scene, ProxyNet at 512^2 with flip TTA.
+CP_SEED = 70_000_000
+CP_BATCH = 8
+# cli: subprocesses over a 1-scene tree; the CLI's predict files against
+# the in-process stage (the same process-independent fp32 work).
+CLI_ITERS = 4
+CLI_TIMEOUT_S = 300
+CLI_TOL = 1e-6
 
 _T0 = time.time()
+# What a run started and must stop or remove if the budget cuts it off:
+# the command-line subprocesses and the trees' directory.
+_CHILDREN = []
+_WORK_DIRS = []
 
 
 def _on_alarm(signum, frame):
     sys.stdout.write(json.dumps({"phase": "timeout", "budget_s": BUDGET_S})
                      + "\n")
     sys.stdout.flush()
+    for child in _CHILDREN:
+        child.kill()
+    for path in _WORK_DIRS:
+        shutil.rmtree(path, ignore_errors=True)
     os._exit(3)
 
 
@@ -412,6 +458,12 @@ def main() -> int:
             MultiViewInit, TrackInit, broad_view_fit, multi_view_fit,
             track_fit)
         from soccerplayershapepose_torch.train import fit3d, scenes
+        from soccerplayershapepose_torch.drivers import stages
+        from soccerplayershapepose_torch.io import formats as io_formats
+        from soccerplayershapepose_torch.io import native
+        from soccerplayershapepose_torch.pipeline.densepose import decode_png
+        from soccerplayershapepose_torch.pipeline.extract import (
+            create_proxy_stage)
     except ImportError as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
@@ -420,7 +472,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     for path in (WEIGHTS, RECORD, E2E_RECORD, PN_WEIGHTS[256],
                  PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD,
-                 *FIT3D_RECORDS.values()):
+                 *FIT3D_RECORDS.values(), MINT_RECORD):
         if not os.path.isfile(os.path.join(root, path)):
             print("chip_smoke: %s is missing; the evaluations need the "
                   "committed weights and records" % path, file=sys.stderr)
@@ -1525,10 +1577,35 @@ def main() -> int:
     k3_fit_launches = {}
 
     # -- fit3d_eval: the single-view fit against the generating 3-D ----------
+    # Each batch's metrics are recorded as the evaluation computes them
+    # (init, then fit), so the fit's effect on MPJPE-PA comes with its
+    # spread over the batches.
     t = time.time()
-    res_sv, sv_s, sv_k12, sv_k3 = counted(lambda: straps.evaluate_fit_3d(
-        model, assets, n_batches=SV_BATCHES, batch=SV_BATCH, wh=FIT3D_WH,
-        fit_cfg=knobs, seed=FIT3D_SEEDS["single"], device=dev))
+    batch_metrics = []
+    metrics_float = straps.metrics_float
+
+    def recording_metrics(*args):
+        out = metrics_float(*args)
+        batch_metrics.append(out)
+        return out
+
+    straps.metrics_float = recording_metrics
+    try:
+        res_sv, sv_s, sv_k12, sv_k3 = counted(
+            lambda: straps.evaluate_fit_3d(
+                model, assets, n_batches=SV_BATCHES, batch=SV_BATCH,
+                wh=FIT3D_WH, fit_cfg=knobs, seed=FIT3D_SEEDS["single"],
+                device=dev))
+    finally:
+        straps.metrics_float = metrics_float
+    check(len(batch_metrics) == 2 * SV_BATCHES,
+          "fit3d_eval computed %d metric sets" % len(batch_metrics))
+    per_batch = [[m["mpjpe_pa_mm"] for m in batch_metrics[b::2]]
+                 for b in (0, 1)]
+    rise = np.array(per_batch[1]) - np.array(per_batch[0])
+    check(abs(float(np.mean(per_batch[0])) - res_sv["init_mpjpe_pa_mm"])
+          <= 1e-3 * res_sv["init_mpjpe_pa_mm"],
+          "the recorded batches do not average to the evaluation's result")
     iters = FIT3D_KNOBS["iters"]
     check(sv_k12 == {"band_raster_fwd": SV_BATCHES * iters,
                      "band_raster_bwd": SV_BATCHES * iters},
@@ -1545,7 +1622,14 @@ def main() -> int:
                                                     / sv_s, 3),
          k1_k2_launches=sv_k12, k3_launches=sv_k3, held_to_record=held,
          record=FIT3D_RECORDS["single"], record_rel_tol=RECORD_REL,
-         metrics=res_sv, profile_note="one batch, %d iterations"
+         metrics=res_sv, per_batch_mpjpe_pa_mm={
+             "init": per_batch[0], "fit": per_batch[1],
+             "fit_minus_init": rise.tolist(),
+             "fit_minus_init_mean": float(rise.mean()),
+             "fit_minus_init_std": float(rise.std(ddof=1)),
+             "fit_minus_init_sem": float(rise.std(ddof=1)
+                                         / np.sqrt(len(rise)))},
+         profile_note="one batch, %d iterations"
          % PROFILE_ITERS, profile=device_profile(
              lambda: straps.evaluate_fit_3d(
                  model, assets, n_batches=1, batch=SV_BATCH, wh=FIT3D_WH,
@@ -1733,6 +1817,499 @@ def main() -> int:
              FitConfig(iters=PROFILE_ITERS, render_wh=FIT_RENDER_WH),
              device=dev)), nvidia_smi=smi)
 
+    # == The folder-tree stages, their IO and the command line ==============
+    with open(os.path.join(root, MINT_RECORD)) as f:
+        mint = json.load(f)
+    if 512 not in pn_nets:
+        pn_nets[512] = load_proxynet_weights(
+            os.path.join(root, PN_WEIGHTS[512]), dev)
+
+    def regressor_fn(assets_, silhouette, joints2d):
+        return predict_smpl(model, assets_, silhouette, joints2d, device=dev)
+
+    def scene_spread(scene_of_row, values):
+        """Per-scene means of one metric and their spread."""
+        by = {}
+        for s_name, v in zip(scene_of_row, values):
+            by.setdefault(s_name, []).append(v)
+        means = {k: float(np.mean(v)) for k, v in sorted(by.items())}
+        arr = np.array(list(means.values()))
+        return {"per_scene": means, "min": float(arr.min()),
+                "max": float(arr.max()), "std": float(arr.std(ddof=1))
+                if len(arr) > 1 else 0.0}
+
+    def hold_mint(stage, got, keys):
+        """Each mean within RECORD_REL of the mint record."""
+        out = {}
+        for k in keys:
+            rec = mint[stage][k]
+            check(np.isfinite(got[k]) and abs(got[k] - rec)
+                  <= RECORD_REL * abs(rec),
+                  "stage_chain %s %s %.4f is not within %d%% of the mint "
+                  "record %.4f" % (stage, k, got[k], RECORD_REL * 100, rec))
+            out[k] = [got[k], rec]
+        return out
+
+    def tree_phases(work: str):
+        """The new phases, on trees written under ``work``: returns the
+        K1/K2 and K3 launches by path and the new K1/K2 and K3 shapes."""
+        k12_paths, k3_paths, k12_new, k3_new = {}, {}, [], []
+        tree = os.path.join(work, "mint")
+        d = {k: os.path.join(tree, k) for k in (
+            "images", "proxies", "broad_images", "broad_proxies", "sgl",
+            "mul", "broad", "sgl_default", "vis_default")}
+        n_views = TREE_SCENES * TREE_PLAYERS * TREE_VIEWS
+        n_players = TREE_SCENES * TREE_PLAYERS
+        one = os.path.join(work, "one_scene")
+        o = {k: os.path.join(one, k) for k in (
+            "images", "proxies", "broad_images", "broad_proxies", "predict",
+            "sgl", "mul", "broad")}
+
+        # -- tree_write: the scene factory and the tree writer ------------
+        t = time.time()
+        gen = torch.Generator().manual_seed(TREE_SEED)
+        corr_gen = torch.Generator().manual_seed(TREE_SEED + 1)
+        written = []
+
+        def write_tree():
+            for s in range(TREE_SCENES):
+                draws = scenes.sample_scene_views_draws(gen, TREE_PLAYERS,
+                                                        TREE_VIEWS)
+                data = scenes.synth_scene_views(assets, draws, wh=TREE_WH)
+                corr = scenes.sample_tree_corruption(corr_gen, data)
+                scenes.write_scene_tree(tree, "game0", "scene%d" % s, data,
+                                        corruption=corr, write_images=False)
+                written.append((data, corr))
+
+        _, tw_s, _, tw_k3 = counted(write_tree)
+        n_files = sum(len(f) for _, _, f in os.walk(tree))
+        n_bytes = sum(os.path.getsize(os.path.join(p, f))
+                      for p, _, fs in os.walk(tree) for f in fs)
+        check(tw_k3 == TREE_SCENES * (TREE_VIEWS + 1),
+              "the tree's scenes launched K3 %d times" % tw_k3)
+        check(n_files == TREE_SCENES * (TREE_PLAYERS * (TREE_VIEWS + 1) * 3
+                                        + TREE_PLAYERS + 3),
+              "the tree holds %d files" % n_files)
+        # The native dataplane (or its Python path) reads the same tree.
+        sils = native.scan_tree(tree, "_sil.npy")
+        check(len(sils) == n_players * (TREE_VIEWS + 1),
+              "scan_tree found %d silhouettes" % len(sils))
+        stems = [os.path.join(tree, p[:-len("_sil.npy")]) for p in sils[:4]]
+        n_sil, n_j2d = native.load_proxy_batch(stems, wh=TREE_WH)
+        for i, stem in enumerate(stems):
+            s_i, j_i = stages.load_proxy_batch(os.path.dirname(stem),
+                                               [os.path.basename(stem)])
+            check(np.array_equal(n_sil[i], s_i[0])
+                  and np.abs(n_j2d[i] - j_i[0]).max() <= 1e-4,
+                  "the dataplane's proxy %s differs from np.load's" % stem)
+        # Scene 0 again, alone: the tree of the command line and of the
+        # profiled short runs (fewer batches, so the profiler's trace stays
+        # short).
+        data0, corr0 = written[0]
+        scenes.write_scene_tree(one, "game0", "scene0", data0,
+                                corruption=corr0, write_images=False)
+        # K3 at the tree's pass: one narrow view of TREE_PLAYERS bodies.
+        view0 = data0["views"][0]
+        geo = scenes.view_geometry(assets, data0["scene"]["body_pose"],
+                                   view0["global_orient"],
+                                   data0["scene"]["betas"], view0["cam_wp"],
+                                   TREE_WH)
+        k3_new.append(dict(k3_case(
+            {"verts2d": geo["verts2d"], "verts_z": geo["verts_z"],
+             "faces": assets.faces}, TREE_PLAYERS, TREE_WH, 1.0,
+            K3_SCENE_PLAIN_B), path="tree_write"))
+        k3_paths["tree_write"] = tw_k3
+        emit("tree_write", t, seed=TREE_SEED, games=1, scenes=TREE_SCENES,
+             players=TREE_PLAYERS, views=TREE_VIEWS, broad_view=True,
+             wh=TREE_WH, reduced_from_games=8, view_crops=n_views,
+             wall_s=round(tw_s, 4), files=n_files, bytes=n_bytes,
+             k3_launches=tw_k3, native_dataplane=native.native_available(),
+             k3_tree_view=k3_new[-1], nvidia_smi=smi)
+
+        # -- stage_chain: the mint yardstick on that tree --------------------
+        t = time.time()
+        sv_cfg = FitConfig(iters=cfg.SINGLE_VIEW_ITERS, **MINT_KNOBS)
+        mv_cfg = FitConfig(iters=cfg.MULTI_VIEW_ITERS, **MINT_KNOBS)
+        bv_cfg = FitConfig(iters=cfg.BROAD_VIEW_ITERS,
+                           **dict(MINT_KNOBS, lr=cfg.BROAD_VIEW_LR))
+        rows = {"single": [], "broad": []}
+        sv_fit, bv_fit = stages.single_view_fit, stages.broad_view_fit
+
+        def keep_rows(name, res, mask):
+            keep = mask.bool().cpu()
+            rows[name] += zip(*(x.cpu()[keep].tolist() for x in (
+                res.init_silh_iou, res.init_joint_err, res.silh_iou,
+                res.joint_err)))
+            return res
+
+        def record_single(a, init, sil, j2d, fit_cfg, mask, device=None):
+            return keep_rows("single", sv_fit(a, init, sil, j2d, fit_cfg,
+                                              mask, device=device), mask)
+
+        def record_broad(a, bp, be, orient, cam, sil, j2d, fit_cfg, mask,
+                         device=None):
+            return keep_rows("broad", bv_fit(a, bp, be, orient, cam, sil,
+                                             j2d, fit_cfg, mask,
+                                             device=device), mask)
+
+        stages.single_view_fit, stages.broad_view_fit = (record_single,
+                                                         record_broad)
+        try:
+            sv, sv_s, sv_k12, _ = counted(
+                lambda: stages.single_view_optimization(
+                    assets, d["images"], d["proxies"], d["sgl"],
+                    regressor_fn=regressor_fn, fit_cfg=sv_cfg,
+                    batch_size=MINT_BATCH, verbose=False, device=dev))
+            mv, mv_s, mv_k12, _ = counted(
+                lambda: stages.multi_view_optimization(
+                    assets, d["images"], d["proxies"], d["sgl"], d["mul"],
+                    fit_cfg=mv_cfg, batch_size=MINT_MV_BATCH, verbose=False,
+                    device=dev))
+            bv, bv_s, bv_k12, _ = counted(
+                lambda: stages.broad_view_optimization(
+                    assets, d["broad_images"], d["broad_proxies"], d["mul"],
+                    d["broad"], regressor_fn=regressor_fn, fit_cfg=bv_cfg,
+                    batch_size=MINT_BATCH, verbose=False, device=dev))
+        finally:
+            stages.single_view_fit, stages.broad_view_fit = sv_fit, bv_fit
+        ci, ci_s, ci_k12, _ = counted(lambda: stages.calc_initial_metrics(
+            assets, d["images"], d["proxies"], d["sgl"], fit_cfg=sv_cfg,
+            batch_size=MINT_BATCH, device=dev))
+        bv_tree = io_formats.calc_metrics(d["broad"])
+        sv_b = -(-n_views // MINT_BATCH)
+        mv_b = -(-n_players // MINT_MV_BATCH)
+        bv_b = -(-n_players // MINT_BATCH)
+        sv_it = sv_b * cfg.SINGLE_VIEW_ITERS
+        mv_it = mv_b * cfg.MULTI_VIEW_ROUNDS * 2 * cfg.MULTI_VIEW_ITERS
+        bv_it = bv_b * cfg.BROAD_VIEW_ITERS
+        for what, got, want in (
+                ("single-view", sv_k12, (sv_it, sv_it)),
+                ("multi-view", mv_k12, (mv_it + mv_b, mv_it)),
+                ("broad-view", bv_k12, (bv_it, bv_it)),
+                ("calc_initial_metrics", ci_k12, (sv_b, 0))):
+            check((got["band_raster_fwd"], got["band_raster_bwd"]) == want,
+                  "the %s stage launched K1/K2 %s times, not %s"
+                  % (what, got, want))
+        check(sv["count"] == n_views and mv["count"] == n_players
+              and bv["count"] == n_players and ci["count"] == n_views,
+              "stage counts %s" % [sv["count"], mv["count"], bv["count"],
+                                   ci["count"]])
+        held = {"single": hold_mint("single", sv, ("init_iou", "init_err",
+                                                   "opt_iou", "opt_err")),
+                "multi": hold_mint("multi", mv, ("iou", "err")),
+                "broad": hold_mint("broad", bv, ("init_iou", "init_err",
+                                                 "opt_iou", "opt_err"))}
+        for stage, r in (("single", sv), ("broad", bv)):
+            check(r["opt_iou"] > r["init_iou"] and r["opt_err"] < r["init_err"],
+                  "the %s fit does not improve IoU and joint error: %s"
+                  % (stage, r))
+        # The stored results reproduce the stage's own metrics.
+        check(abs(ci["silh_iou"] - sv["opt_iou"]) <= 1e-2 * sv["opt_iou"]
+              and abs(ci["joint_err"] - sv["opt_err"])
+              <= 1e-2 * sv["opt_err"],
+              "calc_initial_metrics %s vs the stage's %s" % (ci, sv))
+        check(abs(bv_tree["mean_silh_iou"] - bv["opt_iou"]) <= 1e-9
+              and abs(bv_tree["mean_joint_err"] - bv["opt_err"]) <= 1e-9
+              and bv_tree["num_players"] == n_players,
+              "calc_metrics on the broad tree %s vs the stage's %s"
+              % (bv_tree, bv))
+        sv_scene = [n.scene for n, _ in stages._gather_views(
+            d["images"], d["proxies"], True)]
+        bv_scene = [n.scene for n in io_formats.walk_player_tree(
+            d["broad_images"])]
+        mv_nodes = list(io_formats.walk_player_tree(d["mul"],
+                                                    view_suffix=".xml"))
+        mv_metrics = [io_formats.read_metrics(os.path.join(
+            n.path, "metrics.xml")) for n in mv_nodes]
+        check(len(rows["single"]) == len(sv_scene) == n_views
+              and len(rows["broad"]) == len(bv_scene) == n_players,
+              "recorded %d / %d rows" % (len(rows["single"]),
+                                         len(rows["broad"])))
+        names = ("init_iou", "init_err", "opt_iou", "opt_err")
+        spread = {
+            "single": {k: scene_spread(sv_scene, [r[i] for r in
+                                                  rows["single"]])
+                       for i, k in enumerate(names)},
+            "multi": {k: scene_spread([n.scene for n in mv_nodes],
+                                      [m[i] for m in mv_metrics])
+                      for i, k in enumerate(("iou", "err"))},
+            "broad": {k: scene_spread(bv_scene, [r[i] for r in
+                                                 rows["broad"]])
+                      for i, k in enumerate(names)}}
+        # Idle shares from short runs on the one-scene tree (the
+        # multi-view and broadcast runs start from this chain's results).
+        prof_root = os.path.join(work, "profile")
+        profiles = {
+            "single": device_profile(lambda: stages.single_view_optimization(
+                assets, o["images"], o["proxies"], prof_root + "_sv",
+                regressor_fn=regressor_fn, fit_cfg=dataclasses.replace(
+                    sv_cfg, iters=PROFILE_ITERS), batch_size=MINT_BATCH,
+                verbose=False, device=dev)),
+            "multi": device_profile(lambda: stages.multi_view_optimization(
+                assets, o["images"], o["proxies"], d["sgl"],
+                prof_root + "_mv", fit_cfg=mv_cfg, batch_size=MINT_MV_BATCH,
+                rounds=1, iters_per_phase=PROFILE_ITERS, verbose=False,
+                device=dev)),
+            "broad": device_profile(lambda: stages.broad_view_optimization(
+                assets, o["broad_images"], o["broad_proxies"], d["mul"],
+                prof_root + "_bv", regressor_fn=regressor_fn,
+                fit_cfg=dataclasses.replace(bv_cfg, iters=PROFILE_ITERS),
+                batch_size=MINT_BATCH, verbose=False, device=dev))}
+
+        def timing(wall, iters, n, unit):
+            return {"wall_s": round(wall, 4),
+                    unit + "_per_s": round(n / wall, 3),
+                    "iterations": iters,
+                    "ms_per_iter": round(wall / iters * 1e3, 3)}
+
+        k12_paths["stage_chain"] = {
+            k: sv_k12[k] + mv_k12[k] + bv_k12[k] + ci_k12[k] for k in sv_k12}
+        emit("stage_chain", t, record=MINT_RECORD, record_rel_tol=RECORD_REL,
+             fit_knobs=MINT_KNOBS, batch=MINT_BATCH,
+             multi_view_batch=MINT_MV_BATCH,
+             single=dict(sv, **timing(sv_s, sv_it, n_views, "views"),
+                         k1_k2_launches=sv_k12),
+             multi=dict(mv, **timing(mv_s, mv_it, n_players, "players"),
+                        k1_k2_launches=mv_k12),
+             broad=dict(bv, **timing(bv_s, bv_it, n_players, "players"),
+                        k1_k2_launches=bv_k12),
+             calc_initial_metrics=dict(ci, wall_s=round(ci_s, 4),
+                                       k1_k2_launches=ci_k12),
+             calc_metrics_broad=bv_tree, held_to_record=held,
+             per_scene_spread=spread,
+             profile_note="one scene, %d iterations a batch (multi-view: "
+             "1 round of %d + %d)" % (PROFILE_ITERS, PROFILE_ITERS,
+                                      PROFILE_ITERS),
+             profiles=profiles, nvidia_smi=smi)
+
+        # -- stage_default: the single-view stage at its own defaults --------
+        # Run once without the overlays (the fits' throughput) and once
+        # with them, as the stage's vis_folder writes them.
+        t = time.time()
+        df_b = -(-n_views // STAGE_BATCH)
+        df_it = df_b * cfg.SINGLE_VIEW_ITERS
+        runs = {}
+        for name, vis in (("fits", None), ("with_overlays",
+                                           d["vis_default"])):
+            runs[name] = counted(lambda: stages.single_view_optimization(
+                assets, d["images"], d["proxies"], d["sgl_default"],
+                regressor_fn=regressor_fn, batch_size=STAGE_BATCH,
+                vis_folder=vis, verbose=False, device=dev))
+            res_d, _, k12_d, _ = runs[name]
+            check(k12_d == {"band_raster_fwd": df_it,
+                            "band_raster_bwd": df_it},
+                  "the default stage launched K1/K2 %s times" % k12_d)
+            check(res_d["count"] == n_views and all(np.isfinite(v)
+                                                    for v in res_d.values()),
+                  "the default stage gave %s" % res_d)
+        df, df_s, df_k12, _ = runs["with_overlays"]
+        fits_s = runs["fits"][1]
+        overlays = sorted(os.path.join(p, f) for p, _, fs in
+                          os.walk(d["vis_default"]) for f in fs)
+        check(len(overlays) == n_views, "%d overlays" % len(overlays))
+        with open(overlays[0], "rb") as f:
+            overlay = decode_png(f.read())
+        check(overlay.shape == (TREE_WH, TREE_WH, 3),
+              "the overlay decodes to %s" % (overlay.shape,))
+        # K1/K2 at the stage's shape: 32 rows of the tree's bodies (its
+        # first 32 views, in the stage's order) rendered at 512^2.
+        bp, go, be, cw = [], [], [], []
+        for data, _ in written:
+            for p in range(TREE_PLAYERS):
+                for view in data["views"]:
+                    bp.append(data["scene"]["body_pose"][p])
+                    go.append(view["global_orient"][p])
+                    be.append(data["scene"]["betas"][p])
+                    cw.append(view["cam_wp"][p])
+        rows32 = [torch.stack(x[:STAGE_BATCH]) for x in (bp, go, be, cw)]
+        k12_new.append(dict(k12_case(rows_verts2d(*rows32, TREE_WH),
+                                     TREE_WH, K12_DEFAULT_PLAIN_B),
+                            path="stage_default"))
+        k12_paths["stage_default"] = {k: runs["fits"][2][k] + df_k12[k]
+                                      for k in df_k12}
+        emit("stage_default", t, batch=STAGE_BATCH, render_wh=TREE_WH,
+             sigma=SIGMA, iters=cfg.SINGLE_VIEW_ITERS,
+             metrics=df, fits=timing(fits_s, df_it, n_views, "views"),
+             with_overlays=timing(df_s, df_it, n_views, "views"),
+             overlay_ms_each=round((df_s - fits_s) / n_views * 1e3, 3),
+             k1_k2_launches_per_run=df_k12, overlays=len(overlays),
+             overlay_shape=list(overlay.shape),
+             kernels_at_shape={k: v for k, v in k12_new[-1].items()
+                               if k != "max_abs"},
+             profile_note="one scene, %d iterations, no overlays"
+             % PROFILE_ITERS,
+             profile=device_profile(lambda: stages.single_view_optimization(
+                 assets, o["images"], o["proxies"],
+                 os.path.join(work, "profile_default"),
+                 regressor_fn=regressor_fn, batch_size=STAGE_BATCH,
+                 fit_cfg=dataclasses.replace(FitConfig(),
+                                             iters=PROFILE_ITERS),
+                 verbose=False, device=dev)), nvidia_smi=smi)
+
+        # -- create_proxy: RGB views, ProxyNet on the tree, predict ----------
+        t = time.time()
+        cp = os.path.join(work, "rgb")
+        rgb_draws = scenes.sample_scene_views_draws(
+            torch.Generator().manual_seed(CP_SEED), TREE_PLAYERS, TREE_VIEWS,
+            image_wh=TREE_WH,
+            image_gen=torch.Generator(device=dev).manual_seed(CP_SEED))
+        rgb, _, _, cp_k3 = counted(lambda: scenes.synth_scene_views(
+            assets, rgb_draws, wh=TREE_WH))
+        check(cp_k3 == TREE_VIEWS + 1, "the RGB scene launched K3 %d times"
+              % cp_k3)
+        rv0 = rgb["views"][0]
+        check(tuple(rv0["image"].shape) == (TREE_PLAYERS, TREE_WH, TREE_WH,
+                                            3)
+              and bool(torch.isfinite(rv0["image"]).all()),
+              "the RGB views are not finite (N, wh, wh, 3) images")
+        geo = scenes.view_geometry(assets, rgb["scene"]["body_pose"],
+                                   rv0["global_orient"],
+                                   rgb["scene"]["betas"], rv0["cam_wp"],
+                                   TREE_WH)
+        k3_new.append(dict(k3_case(
+            {"verts2d": geo["verts2d"], "verts_z": geo["verts_z"],
+             "faces": assets.faces}, TREE_PLAYERS, TREE_WH, 1.0,
+            K3_SCENE_PLAIN_B), path="create_proxy"))
+        k3_paths["create_proxy_scene"] = cp_k3
+        scenes.write_scene_tree(cp, "game0", "scene0", rgb, write_images=True)
+        ex = ProxyExtractor(pn_nets[512], wh=TREE_WH, flip_tta=True,
+                            device=dev)
+        torch.cuda.synchronize()
+        t_cp = time.time()
+        out = create_proxy_stage(ex, os.path.join(cp, "images"),
+                                 os.path.join(cp, "proxynet"),
+                                 vis_root=os.path.join(cp, "vis"),
+                                 batch_size=CP_BATCH)
+        torch.cuda.synchronize()
+        cp_s = time.time() - t_cp
+        n_cp = TREE_PLAYERS * TREE_VIEWS
+        check(out["written"] >= 1, "create_proxy wrote no view: %s" % out)
+        ious = []
+        for p, _, fs in os.walk(os.path.join(cp, "proxynet")):
+            for f in sorted(fs):
+                if not f.endswith("_sil.npy"):
+                    continue
+                got = np.load(os.path.join(p, f)) > 0
+                clean = np.load(os.path.join(p.replace(
+                    os.path.join(cp, "proxynet"),
+                    os.path.join(cp, "proxies")), f)) > 0
+                ious.append(float((got & clean).sum()
+                                  / max((got | clean).sum(), 1)))
+        # A player that failed in a later view is deleted whole, so its
+        # earlier views count as written but hold no file.
+        check(1 <= len(ious) <= out["written"], "%d silhouettes on disk for "
+              "%d views written" % (len(ious), out["written"]))
+        pr_root = os.path.join(cp, "predict")
+        n_pred = stages.predict_stage(assets, os.path.join(cp, "proxynet"),
+                                      os.path.join(cp, "images"), pr_root,
+                                      regressor_fn=regressor_fn, device=dev)
+        check(n_pred == len(ious), "predict_stage wrote %d of %d views"
+              % (n_pred, len(ious)))
+        ref_shapes = {"body_pose": (1, 23, 3, 3), "global_orient": (1, 1, 3, 3),
+                      "betas": (1, 10), "translation": (1, 3)}
+        n_npz = 0
+        for p, _, fs in os.walk(pr_root):
+            for f in fs:
+                z = io_formats.read_fit_npz(os.path.join(p, f))
+                check(all(z[k].shape == s_ and z[k].dtype == np.float32
+                          and np.isfinite(z[k]).all()
+                          for k, s_ in ref_shapes.items()),
+                      "predict wrote %s with shapes %s" % (
+                          f, {k: v.shape for k, v in z.items()}))
+                n_npz += 1
+        check(n_npz == n_pred, "%d predict files for %d views"
+              % (n_npz, n_pred))
+        emit("create_proxy", t, wh=TREE_WH, players=TREE_PLAYERS,
+             views=TREE_VIEWS, weights=PN_WEIGHTS[512], flip_tta=True,
+             batch=CP_BATCH, written=out["written"],
+             failed_players=out["failed_players"],
+             wall_s=round(cp_s, 4),
+             ms_per_batch=round(cp_s / -(-n_cp // CP_BATCH) * 1e3, 3),
+             mask_iou_mean=float(np.mean(ious)), mask_iou=ious,
+             predict_views=n_pred, k3_launches=cp_k3,
+             k3_rgb_view=k3_new[-1], nvidia_smi=smi)
+
+        # -- cli: the command line as subprocesses on the card ---------------
+        t = time.time()
+        env = dict(os.environ, PYTHONPATH=root)
+
+        def cli(*args):
+            t_c = time.time()
+            child = subprocess.Popen(
+                [sys.executable, "-m", "soccerplayershapepose_torch", *args],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            _CHILDREN.append(child)
+            try:
+                out, err = child.communicate(timeout=CLI_TIMEOUT_S)
+            finally:
+                child.kill()
+                child.wait()
+                _CHILDREN.remove(child)
+            check(child.returncode == 0, "the CLI's %s exited %d: %s"
+                  % (args[0], child.returncode, err[-2000:]))
+            return (json.loads(out.strip().splitlines()[-1]),
+                    round(time.time() - t_c, 3))
+
+        c = o
+        runs = {
+            "predict": cli("predict", "--image-root", c["images"],
+                           "--proxy-root", c["proxies"], "--result-root",
+                           c["predict"]),
+            "single-view": cli("single-view", "--image-root", c["images"],
+                               "--proxy-root", c["proxies"],
+                               "--result-root", c["sgl"], "--iters",
+                               str(CLI_ITERS)),
+            "multi-view": cli("multi-view", "--image-root", c["images"],
+                              "--proxy-root", c["proxies"],
+                              "--single-view-root", c["sgl"],
+                              "--result-root", c["mul"]),
+            "broad-view": cli("broad-view", "--image-root",
+                              c["broad_images"], "--proxy-root",
+                              c["broad_proxies"], "--multi-view-root",
+                              c["mul"], "--result-root", c["broad"],
+                              "--iters", str(CLI_ITERS)),
+            "calc-metrics": cli("calc-metrics", "--root", c["broad"])}
+        n1 = TREE_PLAYERS * TREE_VIEWS
+        check(runs["predict"][0] == {"views": n1}
+              and runs["single-view"][0]["count"] == n1
+              and runs["multi-view"][0]["count"] == TREE_PLAYERS
+              and runs["broad-view"][0]["count"] == TREE_PLAYERS
+              and runs["calc-metrics"][0]["num_players"] == TREE_PLAYERS,
+              "the CLI printed %s" % {k: v[0] for k, v in runs.items()})
+        # The CLI's predict files against the in-process stage on the card.
+        in_proc = os.path.join(one, "predict_in_process")
+        stages.predict_stage(assets, c["proxies"], c["images"], in_proc,
+                             regressor_fn=regressor_fn, device=dev)
+        cli_err = 0.0
+        for p, _, fs in os.walk(c["predict"]):
+            for f in fs:
+                a = io_formats.read_fit_npz(os.path.join(p, f))
+                b = io_formats.read_fit_npz(os.path.join(
+                    p.replace(c["predict"], in_proc), f))
+                for k in a:
+                    scale = np.abs(b[k]).max() if k == "translation" else 1.0
+                    cli_err = max(cli_err, float(np.abs(a[k] - b[k]).max()
+                                                 / scale))
+        check(cli_err <= CLI_TOL, "the CLI's predict files differ from the "
+              "in-process stage by %.3g" % cli_err)
+        emit("cli", t, players=TREE_PLAYERS, views=TREE_VIEWS,
+             iters=CLI_ITERS, runs={k: {"json": v[0], "wall_s": v[1]}
+                                    for k, v in runs.items()},
+             predict_vs_in_process_max=cli_err, tol=CLI_TOL)
+        return k12_paths, k3_paths, k12_new, k3_new
+
+    work = tempfile.mkdtemp(prefix="_smoke_", dir=root)
+    _WORK_DIRS.append(work)
+    try:
+        tree_k12, tree_k3, tree_k12_shapes, tree_k3_shapes = tree_phases(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    k12_launches.update(tree_k12)
+    k3_fit_launches.update(tree_k3)
+    k12 += tree_k12_shapes
+    k3 += tree_k3_shapes
+
     # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
     k3_launches_pn = {}
     for wh in PN_SHAPES:
@@ -1786,9 +2363,10 @@ def main() -> int:
 
     kernels = []
     # K1 and K2 run once per fit iteration (K1 alone in a forward-only
-    # evaluation) on six paths: the 22-player fit, the three GT-3D
+    # evaluation) on eight paths: the 22-player fit, the three GT-3D
     # evaluations, the broadcast-view fit (with the multi-view fit its
-    # pose comes from) and the track bench. Their times are the mean per
+    # pose comes from), the track bench, the mint chain of stages and
+    # the single-view stage at its defaults. Their times are the mean per
     # launch over the path shapes of "shapes" (the plain versions' on
     # plain_b of the b rows), their pairs the sum over them.
     for name, line in (("band_raster_fwd", 33), ("band_raster_bwd", 475)):
@@ -1818,14 +2396,15 @@ def main() -> int:
                 "pairs_evaluated": r["pairs_evaluated"][name],
                 "bound_ms_chunk_level": r["bound_ms_chunk_level"][name]}
                 for r in k12]})
-    # K3 runs once at each pass shape per batch, on ten paths: the
+    # K3 runs once at each pass shape per batch, on twelve paths: the
     # synthetic evaluation and ProxyNet's at 512² (512² and 128² passes),
     # the e2e evaluation and ProxyNet's at 256² (256² and 64²), the
     # detector's evaluation (one 448² pass per batch of 16 frames), the
     # frame pipeline's synthesis (one 896² pass for its 2 frames), the
     # single-view GT-3D evaluation's crops (512², 128²), and the scene
     # renders (one 512² pass per view, or per track batch) of the
-    # multi-view and track evaluations and the broadcast-view fit. Its
+    # multi-view and track evaluations, the broadcast-view fit, the
+    # stage tree and the create-proxy scene (with colour channels). Its
     # times are the mean per launch over the pass shapes, its pairs the
     # sum over them; "shapes" gives each (the plain version's time on
     # plain_b of the b images), "launches_by_path" each path's count.

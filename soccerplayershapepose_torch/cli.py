@@ -1,0 +1,238 @@
+"""Command-line interface of the port's folder-tree stages.
+
+Counterpart of ``soccerplayershapepose_tpu/cli.py``, with its flags, over
+the same ``<root>/<game>/<scene>/<player>/<view>`` trees:
+
+    python -m soccerplayershapepose_torch create-proxy --image-root ... --proxy-root ...
+    python -m soccerplayershapepose_torch predict --image-root ... --proxy-root ... --result-root ...
+    python -m soccerplayershapepose_torch single-view ...
+    python -m soccerplayershapepose_torch multi-view ... --single-view-root ...
+    python -m soccerplayershapepose_torch broad-view ... --multi-view-root ...
+    python -m soccerplayershapepose_torch calc-metrics --root ...
+
+Each stage runs on ``--device`` (default ``cuda``; it refuses to start
+where there is no card rather than fall back to the CPU; ``--device cpu``
+runs the plain PyTorch path) and prints one JSON line last. The regressor
+is the committed ``weights/regressor*_f16.npz`` (the random seeded one if
+there is none). The subcommands ``detect-players``, ``crop-player``,
+``crop-broad-player``, ``harvest-frames``, ``train`` and
+``train-perception`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _add_device_arg(p: argparse.ArgumentParser):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the CUDA card; "
+                        "'cpu' runs the plain PyTorch path)")
+
+
+def _add_fit_args(p: argparse.ArgumentParser):
+    p.add_argument("--iters", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--no-silhouette", action="store_true",
+                   help="joints-only loss (faster; reference uses both)")
+    p.add_argument("--render-wh", type=int, default=None,
+                   help="silhouette render resolution (default: proxy 512)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--smpl-dir", default=None,
+                   help="SMPL asset dir (synthetic model if absent)")
+    p.add_argument("--checkpoint", default=None,
+                   help="reference straps .tar checkpoint to import (not "
+                        "supported yet: needs io/torch_import.py)")
+    p.add_argument("--conf-weight", action="store_true",
+                   help="weight the joints2D fit loss by the keypoint "
+                        "score channel of *_j2d.xml")
+    p.add_argument("--betas-prior", type=float, default=0.0)
+    p.add_argument("--pose-prior", type=float, default=0.0)
+    p.add_argument("--ortho-prior", type=float, default=0.0,
+                   help="rotation-manifold prior weight on the free 3x3s")
+    p.add_argument("--silh-warmup", type=int, default=0,
+                   help="linear silhouette-loss warmup iterations")
+    p.add_argument("--joints2d-scale", type=float, default=1.0,
+                   help="multiplier on the raw joints2D fit loss; ~1e6 "
+                        "puts joint evidence on par with the reference's "
+                        "1e6-weighted silhouette sum (FitConfig docs)")
+    _add_device_arg(p)
+
+
+def _build_fit_cfg(args, default_iters, default_lr):
+    from soccerplayershapepose_torch.fit import FitConfig
+    kw = {}
+    kw["iters"] = args.iters if args.iters is not None else default_iters
+    kw["lr"] = args.lr if args.lr is not None else default_lr
+    if args.no_silhouette:
+        kw["use_silhouette"] = False
+        kw["silhouette_metrics"] = False
+    if args.render_wh:
+        kw["render_wh"] = args.render_wh
+    kw["joint_conf_weighting"] = args.conf_weight
+    kw["betas_prior"] = args.betas_prior
+    kw["pose_prior"] = args.pose_prior
+    kw["rot_ortho_prior"] = args.ortho_prior
+    kw["silh_warmup_iters"] = args.silh_warmup
+    kw["joints2d_scale"] = args.joints2d_scale
+    return FitConfig(**kw)
+
+
+def _load_runtime(args):
+    """(device, SMPL assets, regressor_fn) of a stage subcommand."""
+    from soccerplayershapepose_torch.convert import (
+        default_weights_path, load_regressor_weights)
+    from soccerplayershapepose_torch.pipeline.predict import (
+        build_predictor, predict_smpl)
+    from soccerplayershapepose_torch.smpl import load_assets
+    from soccerplayershapepose_torch.utils.precision import default_device
+    if args.checkpoint:
+        # Never carry on with other weights than the ones asked for.
+        if not os.path.exists(args.checkpoint):
+            raise SystemExit(f"--checkpoint {args.checkpoint}: no such file")
+        raise SystemExit(
+            f"--checkpoint {args.checkpoint}: importing a straps .tar "
+            "checkpoint needs io/torch_import.py, which the port does not "
+            "have yet")
+    dev = default_device(args.device)
+    assets = load_assets(model_dir=args.smpl_dir, device=dev)
+    path = default_weights_path("regressor")
+    if path is None:
+        _, fn = build_predictor(device=dev)
+        return dev, assets, fn
+    model = load_regressor_weights(path, dev)
+    print(f"regressor weights: {path}")
+
+    def fn(assets_, silhouette, joints2d):
+        return predict_smpl(model, assets_, silhouette, joints2d, device=dev)
+
+    return dev, assets, fn
+
+
+def _require_weights(kind: str) -> str:
+    """The committed weights artifact, or exit with guidance."""
+    from soccerplayershapepose_torch.convert import default_weights_path
+    path = default_weights_path(kind)
+    if path is None:
+        raise SystemExit(
+            f"no --weights given and no committed weights/{kind}*_f16.npz "
+            "artifact found")
+    return path
+
+
+def main(argv=None) -> int:
+    from soccerplayershapepose_torch import config as cfg
+
+    parser = argparse.ArgumentParser(prog="soccerplayershapepose_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    for name in ("predict", "single-view", "broad-view"):
+        p = sub.add_parser(name)
+        p.add_argument("--image-root", required=True)
+        p.add_argument("--proxy-root", required=True)
+        p.add_argument("--result-root", required=True)
+        if name == "broad-view":
+            p.add_argument("--multi-view-root", required=True)
+            p.add_argument("--is-refine", action="store_true")
+        if name == "single-view":
+            p.add_argument("--is-refine", action="store_true")
+            p.add_argument("--mul-folder", default=None)
+            p.add_argument("--skip-existing", action="store_true")
+        _add_fit_args(p)
+
+    p = sub.add_parser("multi-view")
+    p.add_argument("--image-root", required=True)
+    p.add_argument("--proxy-root", required=True)
+    p.add_argument("--single-view-root", required=True)
+    p.add_argument("--result-root", required=True)
+    _add_fit_args(p)
+
+    p = sub.add_parser("calc-metrics")
+    p.add_argument("--root", required=True)
+    p.add_argument("--score-thresh", type=float,
+                   default=cfg.REFINE_SCORE_THRESH)
+
+    p = sub.add_parser("create-proxy",
+                       help="proxy extraction from raw crops on the card")
+    p.add_argument("--image-root", required=True)
+    p.add_argument("--proxy-root", required=True)
+    p.add_argument("--vis-root", default=None)
+    p.add_argument("--weights", default=None,
+                   help="ProxyNet weights .npz (default: committed "
+                        "weights/proxynet*_f16.npz artifact)")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--write-iuv", action="store_true")
+    p.add_argument("--no-iuv", action="store_true")
+    p.add_argument("--no-flip-tta", action="store_true",
+                   help="disable the horizontal-flip mask/IUV ensemble "
+                        "(default on; one 2B-batch forward)")
+    _add_device_arg(p)
+
+    args = parser.parse_args(argv)
+
+    if args.command == "calc-metrics":
+        from soccerplayershapepose_torch.io import calc_metrics
+        print(json.dumps(calc_metrics(args.root, args.score_thresh)))
+        return 0
+
+    if args.command == "create-proxy":
+        from soccerplayershapepose_torch.convert import load_proxynet_weights
+        from soccerplayershapepose_torch.pipeline.extract import (
+            ProxyExtractor, create_proxy_stage)
+        weights = args.weights or _require_weights("proxynet")
+        model = load_proxynet_weights(weights, args.device,
+                                      with_iuv=not args.no_iuv)
+        extractor = ProxyExtractor(model, flip_tta=not args.no_flip_tta,
+                                   device=args.device)
+        out = create_proxy_stage(extractor, args.image_root, args.proxy_root,
+                                 vis_root=args.vis_root,
+                                 batch_size=args.batch_size,
+                                 write_iuv=args.write_iuv)
+        print(json.dumps(out))
+        return 0
+
+    dev, assets, fn = _load_runtime(args)
+    from soccerplayershapepose_torch.drivers import (
+        broad_view_optimization, multi_view_optimization, predict_stage,
+        single_view_optimization)
+
+    if args.command == "predict":
+        n = predict_stage(assets, args.proxy_root, args.image_root,
+                          args.result_root, regressor_fn=fn,
+                          batch_size=args.batch_size, device=dev)
+        print(json.dumps({"views": n}))
+    elif args.command == "single-view":
+        out = single_view_optimization(
+            assets, args.image_root, args.proxy_root, args.result_root,
+            regressor_fn=fn,
+            fit_cfg=_build_fit_cfg(args, cfg.SINGLE_VIEW_ITERS,
+                                   cfg.FITTING_LR),
+            batch_size=args.batch_size, is_refine=args.is_refine,
+            mul_folder=args.mul_folder, skip_existing=args.skip_existing,
+            device=dev)
+        print(json.dumps(out))
+    elif args.command == "multi-view":
+        out = multi_view_optimization(
+            assets, args.image_root, args.proxy_root, args.single_view_root,
+            args.result_root,
+            fit_cfg=_build_fit_cfg(args, cfg.MULTI_VIEW_ITERS,
+                                   cfg.FITTING_LR),
+            batch_size=max(1, args.batch_size // 4), device=dev)
+        print(json.dumps(out))
+    elif args.command == "broad-view":
+        out = broad_view_optimization(
+            assets, args.image_root, args.proxy_root, args.multi_view_root,
+            args.result_root, regressor_fn=fn,
+            fit_cfg=_build_fit_cfg(args, cfg.BROAD_VIEW_ITERS,
+                                   cfg.BROAD_VIEW_LR),
+            batch_size=args.batch_size, is_refine=args.is_refine,
+            device=dev)
+        print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

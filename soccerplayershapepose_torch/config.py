@@ -53,6 +53,7 @@ MULTI_VIEW_ROUNDS = 3
 BROAD_VIEW_ITERS = 100
 BROAD_VIEW_LR = 0.01
 FITTING_LR = 0.001
+REFINE_SCORE_THRESH = 10.0      # px joint error gating human refinement
 FITTING_INIT_LOSS_WEIGHTS = {"joints2D": 1.0, "silhouette": 1000000.0}
 MAX_PLAYERS_PER_FRAME = 22
 

@@ -13,6 +13,8 @@ detector's (``weights/detector_256x448_f16.npz``) into
 
 from __future__ import annotations
 
+import glob
+import os
 import re
 from typing import Optional
 
@@ -94,6 +96,17 @@ def _load_strict(model, sd: dict, path: str, what: str):
         raise ValueError("weights %s do not fit %s: missing %s, unexpected %s"
                          % (path, what, missing[:5], unexpected[:5]))
     return model
+
+
+def default_weights_path(kind: str) -> Optional[str]:
+    """The committed ``weights/<kind>*_f16.npz`` at the repo root whose
+    name sorts last (the highest resolution tag), or None if there is
+    none (``train/perception.py:default_weights_path`` of the JAX
+    package)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hits = sorted(glob.glob(os.path.join(root, "weights",
+                                         f"{kind}*_f16.npz")))
+    return hits[-1] if hits else None
 
 
 def _read_flat(path: str) -> dict:

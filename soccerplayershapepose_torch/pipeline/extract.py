@@ -19,24 +19,42 @@ level: averaged, score-weighted, where the two passes agree within
 detector (``models/detector.py``), with or without flip TTA → per-frame
 boxes at or above the score threshold, on the host.
 
-The stage functions of the JAX module (``create_proxy_stage``,
-``crop_player_stage``, …) and ``read_image`` are not ported yet.
+:func:`create_proxy_stage` runs the extractor over a
+``<game>/<scene>/<player>/<view>.png`` crop tree and writes each view's
+proxy (``<view>_j2d.xml``, ``<view>_sil.npy``, optionally
+``<view>_iuv.npy`` and a ``<view>_silhouette.png`` overlay), deleting a
+player whose extraction failed in any view. The JAX module's other stage
+functions (``crop_player_stage``, ``detect_players_stage``, …) are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
+from soccerplayershapepose_torch.io import formats as io
 from soccerplayershapepose_torch.models.detector import (
     PlayerDetector, apply_flip_tta, decode_detections)
 from soccerplayershapepose_torch.models.perception import (
     ProxyNet, decode_iuv, decode_keypoints, decode_silhouette)
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, default_device)
+
+
+def read_image(path: str, wh: Optional[int] = None) -> np.ndarray:
+    """PNG/JPEG → (H, W, 3) uint8 RGB, bilinear-resized to wh² when given
+    (the reference's cv2 INTER_LINEAR resize, through PIL)."""
+    from PIL import Image
+    img = Image.open(path).convert("RGB")
+    if wh is not None and img.size != (wh, wh):
+        img = img.resize((wh, wh), Image.BILINEAR)
+    return np.asarray(img, np.uint8)
 
 
 def largest_centred_component(mask: np.ndarray) -> Optional[np.ndarray]:
@@ -205,6 +223,92 @@ class ProxyExtractor:
             n += 1
             results.append((kp, comp, None if iuv is None else iuv[i]))
         return results
+
+
+def _proxy_vis(image: np.ndarray, sil: np.ndarray,
+               keypoints: np.ndarray) -> np.ndarray:
+    """Overlay vis: 0.7·image + 0.3·mask, keypoints as green squares."""
+    vis = (image.astype(np.float32) * 0.7
+           + sil[..., None] * 128.0 * 0.3).astype(np.uint8)
+    h, w = sil.shape
+    for x, y, _ in keypoints:
+        x0, y0 = int(x), int(y)
+        vis[max(y0 - 3, 0):min(y0 + 4, h),
+            max(x0 - 3, 0):min(x0 + 4, w)] = (0, 255, 0)
+    return vis
+
+
+def create_proxy_stage(extractor: ProxyExtractor, image_root: str,
+                       proxy_root: str, vis_root: Optional[str] = None,
+                       ignore_first: bool = True, batch_size: int = 8,
+                       write_iuv: bool = False,
+                       skip_existing: bool = True) -> dict:
+    """Folder-tree proxy extraction from raw crops.
+
+    Every view of every player under ``image_root`` (player '1', the
+    camera-man crop, skipped with ``ignore_first``; views whose proxy
+    exists skipped with ``skip_existing``) is read at the extractor's
+    size, in batches of ``batch_size`` (the last one padded by repeating
+    its last crop, so the forward always sees ``batch_size`` crops). A
+    player whose extraction fails in any view is deleted from
+    ``proxy_root`` at once and written no further.
+
+    Returns {'written': n_views, 'failed_players': [game/scene/player]}.
+    """
+    jobs: List[Tuple[io.PlayerTree, str]] = []
+    for node in io.walk_player_tree(image_root):
+        if ignore_first and node.player == "1":
+            continue
+        for view in node.views:
+            stem = os.path.join(proxy_root, node.game, node.scene,
+                                node.player, os.path.splitext(view)[0])
+            if skip_existing and os.path.exists(stem + "_sil.npy") \
+                    and os.path.exists(stem + "_j2d.xml"):
+                continue
+            jobs.append((node, view))
+
+    written = 0
+    failed: List[str] = []
+    failed_set = set()   # player keys: keeps the delete atomic per player
+    for start in range(0, len(jobs), batch_size):
+        chunk = jobs[start:start + batch_size]
+        images = np.stack([
+            read_image(os.path.join(n.path, v), extractor.wh)
+            for n, v in chunk])
+        pad = batch_size - len(chunk)
+        if pad:
+            images = np.concatenate([images,
+                                     np.repeat(images[-1:], pad, axis=0)])
+        results = extractor(images)
+        for (node, view), (kp, sil, iuv), img in zip(chunk, results, images):
+            key = os.path.join(node.game, node.scene, node.player)
+            if key in failed_set:
+                # A sibling view already failed and the player was deleted:
+                # never resurrect it with a partial proxy set.
+                continue
+            player_dst = os.path.join(proxy_root, node.game, node.scene,
+                                      node.player)
+            if kp is None:
+                if os.path.isdir(player_dst):
+                    shutil.rmtree(player_dst)
+                failed.append(key)
+                failed_set.add(key)
+                continue
+            os.makedirs(player_dst, exist_ok=True)
+            stem = os.path.join(player_dst, os.path.splitext(view)[0])
+            io.write_joints2d(stem + "_j2d.xml", kp)
+            np.save(stem + "_sil.npy", sil.astype(np.uint8))
+            if write_iuv and iuv is not None:
+                np.save(stem + "_iuv.npy", iuv.astype(np.float32))
+            if vis_root is not None:
+                vis_dir = os.path.join(vis_root, node.game, node.scene,
+                                       node.player)
+                os.makedirs(vis_dir, exist_ok=True)
+                io.write_png(os.path.join(
+                    vis_dir, os.path.splitext(view)[0] + "_silhouette.png"),
+                    _proxy_vis(img, sil, kp))
+            written += 1
+    return {"written": written, "failed_players": failed}
 
 
 class PlayerDetectorRunner:

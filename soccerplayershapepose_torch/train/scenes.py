@@ -1,7 +1,7 @@
 """Synthetic broadcast scenes: multi-view players and tracks with known 3-D.
 
 Counterpart of ``soccerplayershapepose_tpu/train/scenes.py`` (the scene
-factory; its tree writer is not ported yet):
+factory and its tree writer):
 
 * a scene is N players with correlated parameters: a shared base pose mixed
   into each player's own sample (a team action), global orientations that
@@ -23,16 +23,25 @@ narrow view's azimuth noise (azimuth 2πv/V + 0.12·n, n standard normal) and
 the broad view's azimuth (U[−π, π)). The geometry is drawn first and the
 appearance (for images) after it, from ``image_gen`` when given, so the
 geometry stream of a generator is the same with or without images.
+
+:func:`write_scene_tree` writes a scene to the stage drivers' folder
+layout. The proxies it writes may carry the detector-noise corruption,
+from explicit draws (one per view, :func:`sample_tree_corruption`): the
+JAX writer keys each view's corruption by Python's ``hash`` of a string
+tuple, which is salted per process, so its corrupted trees differ from
+process to process; the port's are fixed by the generator's seed.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import os
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
+from soccerplayershapepose_torch.io import formats as io
 from soccerplayershapepose_torch.ops.camera import (
     perspective_project, weak_perspective_to_translation)
 from soccerplayershapepose_torch.ops.rotations import batch_rodrigues
@@ -43,6 +52,8 @@ from soccerplayershapepose_torch.train.synth import (
     _POSE_SCALE, AppearanceDraws, _kit_vertex_colors, _normal,
     _shaded_colors, _uniform, compose_image, draws_to,
     sample_appearance_draws)
+from soccerplayershapepose_torch.train.straps import (
+    CorruptionDraws, corrupt_proxy_inputs, sample_corruption_draws)
 
 # The virtual broadcast frame the scene boxes live in (pixels).
 FRAME_W, FRAME_H = 1920, 1080
@@ -384,3 +395,119 @@ def synth_track_views(assets: SMPLAssets, draws: TrackDraws,
     if "image" in flat:
         out["image"] = flat["image"].reshape(n, t, wh, wh, 3)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tree writer (stage-driver-compatible layout)
+# ---------------------------------------------------------------------------
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _tree_views(data: dict):
+    """The writer's (image root, proxy root, stem, view) per view, in the
+    order of the corruption draws: the narrow views, then the broad."""
+    out = [("images", "proxies", f"view{i}", v)
+           for i, v in enumerate(data["views"])]
+    if "broad" in data:
+        out.append(("broad_images", "broad_proxies", "broad", data["broad"]))
+    return out
+
+
+def sample_tree_corruption(gen: torch.Generator, data: dict
+                           ) -> Tuple[CorruptionDraws, ...]:
+    """The corruption draws of one scene's written proxies: one batch of N
+    players per view, narrow views first, then the broad one, from ``gen``
+    in that order; no dropout (``drop_p=0``: the fits read raw
+    coordinates)."""
+    return tuple(sample_corruption_draws(
+        gen, view["silhouette"].shape[0], view["silhouette"].shape[-1],
+        drop_p=0.0) for _, _, _, view in _tree_views(data))
+
+
+def _write_proxy(proxy_dir: str, stem: str, sil: np.ndarray,
+                 j2d: np.ndarray) -> None:
+    os.makedirs(proxy_dir, exist_ok=True)
+    # uint8 keeps the tree ~4x smaller; the stages read it as float32.
+    np.save(os.path.join(proxy_dir, stem + "_sil.npy"), sil.astype(np.uint8))
+    io.write_joints2d(os.path.join(proxy_dir, stem + "_j2d.xml"), j2d)
+
+
+def write_scene_tree(root: str, game: str, scene_name: str, data: dict,
+                     corruption: Optional[Sequence[CorruptionDraws]] = None,
+                     write_images: bool = True,
+                     first_player_id: int = 2) -> None:
+    """Write one scene (:func:`synth_scene_views`' dict, on any device) to
+    the reference folder layout under ``root``:
+    ``images|broad_images/<game>/<scene>/<player>/<stem>.png``, the proxies
+    (``<stem>_sil.npy`` uint8, ``<stem>_j2d.xml`` (17, 3) with a score
+    column) under ``proxies|broad_proxies``, the clean ground truth in
+    ``gt/.../gt.npz`` and ``scenes/<game>/<scene>/{boxes,index,ball}.xml``.
+
+    ``corruption`` (one :class:`CorruptionDraws` per view, in
+    :func:`sample_tree_corruption`'s order) applies the STRAPS
+    detector-noise model to the written proxies: joint jitter with noisy
+    scores and silhouette cut-outs; None writes them clean, scores 1.
+    Without ``write_images`` (or without images in the views) each view's
+    image is a 1-px marker: the tree walker enumerates views by ``.png``.
+    Player ids start at ``first_player_id`` because the single- and
+    multi-view stages skip id '1' (the reference's camera-man crop).
+    """
+    scene = data["scene"]
+    n = int(scene["betas"].shape[0])
+    views = _tree_views(data)
+    if corruption is not None and len(corruption) != len(views):
+        raise ValueError("%d corruption draws for %d views"
+                         % (len(corruption), len(views)))
+    gt_views = {}
+    for k, (img_root, proxy_root, stem, view) in enumerate(views):
+        sil, j2d = view["silhouette"], view["joints2d"]
+        if corruption is None:
+            scores = torch.ones(j2d.shape[:2], dtype=j2d.dtype,
+                                device=j2d.device)
+        else:
+            sil, j2d, scores = corrupt_proxy_inputs(
+                draws_to(corruption[k], sil.device), sil, j2d,
+                return_scores=True)
+        sil_c = _np(sil)
+        j2d_c = _np(torch.cat([j2d, scores[..., None]], dim=-1))
+        gt_views[stem] = {name: _np(view[name]) for name in
+                          ("global_orient", "cam_wp", "joints2d")}
+        image = (_np(view["image"]) if write_images and "image" in view
+                 else None)
+        for p in range(n):
+            pid = str(first_player_id + p)
+            img_dir = os.path.join(root, img_root, game, scene_name, pid)
+            os.makedirs(img_dir, exist_ok=True)
+            io.write_png(os.path.join(img_dir, stem + ".png"),
+                         np.zeros((1, 1, 3), np.uint8) if image is None
+                         else (image[p] * 255).astype(np.uint8))
+            _write_proxy(
+                os.path.join(root, proxy_root, game, scene_name, pid),
+                stem, sil_c[p], j2d_c[p])
+
+    scene_np = {name: _np(v) for name, v in scene.items()}
+    for p in range(n):
+        pid = str(first_player_id + p)
+        gt_dir = os.path.join(root, "gt", game, scene_name, pid)
+        os.makedirs(gt_dir, exist_ok=True)
+        np.savez(os.path.join(gt_dir, "gt.npz"),
+                 body_pose=scene_np["body_pose"][p],
+                 betas=scene_np["betas"][p],
+                 yaw=scene_np["yaw"][p],
+                 boxes=scene_np["boxes"][p],
+                 **{f"{stem}_global_orient": gv["global_orient"][p]
+                    for stem, gv in gt_views.items()},
+                 **{f"{stem}_cam_wp": gv["cam_wp"][p]
+                    for stem, gv in gt_views.items()},
+                 **{f"{stem}_joints2d": gv["joints2d"][p]
+                    for stem, gv in gt_views.items()})
+
+    scene_dir = os.path.join(root, "scenes", game, scene_name)
+    os.makedirs(scene_dir, exist_ok=True)
+    io.write_boxes(os.path.join(scene_dir, "boxes.xml"), scene_np["boxes"])
+    io.write_index(os.path.join(scene_dir, "index.xml"),
+                   list(range(first_player_id, first_player_id + n)))
+    io.write_json_xml(os.path.join(scene_dir, "ball.xml"),
+                      [float(x) for x in scene_np["ball_xy"]])

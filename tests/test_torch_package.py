@@ -82,7 +82,9 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 29
+    # Every module of the port, the stage drivers, the IO and the command
+    # line (cli, __main__) among them.
+    assert int(out.stdout.split()[-1]) >= 59
 
 
 @pytest.mark.parametrize("needle", ["cpp_extension", "import triton",
