@@ -42,10 +42,21 @@ call and drives the port's two paths on the card:
   roll-ups on it, at the JAX package's mint configuration, held to
   ``weights/distill_r05/mint_summary.json``; the single-view stage at its
   own defaults (32 rows, 512^2 render: K1/K2 at a new shape) with its
-  mesh overlays; ``create_proxy_stage`` (ProxyNet at 512^2 with flip TTA)
+  mesh overlays on 8 views; ``create_proxy_stage`` (ProxyNet at 512^2 with flip TTA)
   on one RGB scene and ``predict_stage`` on what it wrote; and the
-  command line (``python -m soccerplayershapepose_torch``) as
-  subprocesses on a 1-scene tree.
+  command line's multi-view and broadcast-view fits
+  (``python -m soccerplayershapepose_torch``) as subprocesses on a
+  1-scene tree;
+* the one-clip rehearsal (``scripts/e2e_rehearsal.py``, held to
+  ``weights/e2e_r05/summary.json``): a synthetic mp4v clip of 16 wide
+  256 x 448 frames with 8 players (K3 at 448^2) and 6 RGB close-ups (K3
+  at 256^2 and 64^2), taken through the command line as subprocesses
+  (harvest-frames with the frame classifier
+  ``weights/frame_classifier.npz``, crop-broad-player, create-proxy,
+  predict, single-view, calc-metrics); the classifier on the card held to
+  the CPU and timed per frame; the detect and crop stages in process,
+  timed and split; and the single-view stage at its defaults on the
+  clip's crops (K1/K2 at 32 rows x 512^2).
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -65,6 +76,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import faulthandler
 import json
@@ -75,6 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 BUDGET_S = 900
 DEVICE = "cuda"
@@ -241,6 +254,10 @@ MINT_KNOBS = dict(lr=1e-3, proxy_wh=TREE_WH, render_wh=256,
 MINT_BATCH = 16
 MINT_MV_BATCH = 4         # max(batch // 4, 2), as the mint ran it
 STAGE_BATCH = 32          # single_view_optimization's own default
+# Views of the default stage's run with its mesh overlays (each a dense
+# plain 512^2 silhouette, ~0.85 s on the card; cut from the tree's 72 to
+# keep the run inside its budget).
+OVERLAY_VIEWS = 8
 # Rows of K1/K2 at the default stage's 512^2 shape held against the dense
 # plain versions (0.79 s a row for K1, 2.24 s for K2 on an H100 80GB HBM3
 # at 700 W).
@@ -253,6 +270,28 @@ CP_BATCH = 8
 CLI_ITERS = 4
 CLI_TIMEOUT_S = 300
 CLI_TOL = 1e-6
+# e2e_clip: the one-clip rehearsal (scripts/e2e_rehearsal.py, its record
+# weights/e2e_r05/summary.json): 16 wide frames of 256 x 448 with 8
+# players, 6 RGB close-ups at 256^2 centred on black frames, interleaved
+# into an mp4v clip at 25 fps; harvest-frames samples 48 positions and
+# keeps up to 8 frames; the single-view fit runs 4 iterations.
+E2E_CLIP_RECORD = os.path.join("weights", "e2e_r05", "summary.json")
+CLS_WEIGHTS = os.path.join("weights", "frame_classifier.npz")
+DET_META = os.path.join("weights", "detector_256x448_f16.json")
+CLIP_SEED = 80_000_000
+CLIP_HW, CLIP_PLAYERS, CLIP_BATCH = (256, 448), 8, 2
+CLIP_WIDE, CLIP_CLOSE, CLIP_CROP_WH, CLIP_FPS = 16, 6, 256, 25
+CLIP_SAMPLES, CLIP_MAX_ACCEPTED, CLIP_ITERS = 48, 8, 4
+CLIP_PROXY_FRAC = 0.75    # crops with a proxy, at least
+# The classifier on the card against the same nets on the CPU (fp32, TF32
+# off): features and logits within CLS_TOL of their largest magnitude
+# (detector_parity's bar); a decision may differ only where the CPU's two
+# logits lie within twice the measured logit gap of each other (counted).
+CLS_TOL = 1e-3
+# Images of the clip's K3 passes held against the dense plain version.
+K3_CLIP_PLAIN_B = 2
+# crop_player_stage's detector size (the CLI's default).
+CROP_PLAYER_HW = (256, 256)
 
 _T0 = time.time()
 # What a run started and must stop or remove if the budget cuts it off:
@@ -276,6 +315,17 @@ def emit(phase: str, t_start: float, **kw) -> None:
     rec = {"phase": phase, "s": round(time.time() - t_start, 3)}
     rec.update(kw)
     print(json.dumps(rec), flush=True)
+
+
+def timed(acc: dict, key: str, fn):
+    """``fn`` wrapped to add its wall time to ``acc[key]``."""
+    def wrapper(*a, **kw):
+        t0 = time.time()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.time() - t0
+    return wrapper
 
 
 def check(cond: bool, what: str) -> None:
@@ -428,6 +478,7 @@ def main() -> int:
         from soccerplayershapepose_torch.utils import precision  # noqa: F401
         from soccerplayershapepose_torch.render import band_raster as br
         from soccerplayershapepose_torch.render import softras
+        from soccerplayershapepose_torch.render import vis as vis_mod
         from soccerplayershapepose_torch.fit import FitConfig, single_view_fit
         from soccerplayershapepose_torch.fit.engine import FitInit
         from soccerplayershapepose_torch.ops import (
@@ -472,7 +523,8 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     for path in (WEIGHTS, RECORD, E2E_RECORD, PN_WEIGHTS[256],
                  PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD,
-                 *FIT3D_RECORDS.values(), MINT_RECORD):
+                 *FIT3D_RECORDS.values(), MINT_RECORD, E2E_CLIP_RECORD,
+                 CLS_WEIGHTS, DET_META):
         if not os.path.isfile(os.path.join(root, path)):
             print("chip_smoke: %s is missing; the evaluations need the "
                   "committed weights and records" % path, file=sys.stderr)
@@ -1850,6 +1902,28 @@ def main() -> int:
             out[k] = [got[k], rec]
         return out
 
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def cli(*args):
+        """One CLI subcommand as a subprocess on the card: (its last JSON
+        line, wall s)."""
+        t_c = time.time()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "soccerplayershapepose_torch", *args],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        _CHILDREN.append(child)
+        try:
+            out, err = child.communicate(timeout=CLI_TIMEOUT_S)
+        finally:
+            child.kill()
+            child.wait()
+            _CHILDREN.remove(child)
+        check(child.returncode == 0, "the CLI's %s exited %d: %s"
+              % (args[0], child.returncode, err[-2000:]))
+        return (json.loads(out.strip().splitlines()[-1]),
+                round(time.time() - t_c, 3))
+
     def tree_phases(work: str):
         """The new phases, on trees written under ``work``: returns the
         K1/K2 and K3 launches by path and the new K1/K2 and K3 shapes."""
@@ -1862,8 +1936,8 @@ def main() -> int:
         n_players = TREE_SCENES * TREE_PLAYERS
         one = os.path.join(work, "one_scene")
         o = {k: os.path.join(one, k) for k in (
-            "images", "proxies", "broad_images", "broad_proxies", "predict",
-            "sgl", "mul", "broad")}
+            "images", "proxies", "broad_images", "broad_proxies", "sgl",
+            "mul", "broad")}
 
         # -- tree_write: the scene factory and the tree writer ------------
         t = time.time()
@@ -2083,30 +2157,57 @@ def main() -> int:
              profiles=profiles, nvidia_smi=smi)
 
         # -- stage_default: the single-view stage at its own defaults --------
-        # Run once without the overlays (the fits' throughput) and once
-        # with them, as the stage's vis_folder writes them.
+        # Run once on the tree without the overlays (the fits'
+        # throughput), then on its first OVERLAY_VIEWS views (in the
+        # stage's order) with them, as the stage's vis_folder writes them,
+        # timing the overlay's render and its PNG encode where they run.
         t = time.time()
-        df_b = -(-n_views // STAGE_BATCH)
-        df_it = df_b * cfg.SINGLE_VIEW_ITERS
-        runs = {}
-        for name, vis in (("fits", None), ("with_overlays",
-                                           d["vis_default"])):
-            runs[name] = counted(lambda: stages.single_view_optimization(
-                assets, d["images"], d["proxies"], d["sgl_default"],
-                regressor_fn=regressor_fn, batch_size=STAGE_BATCH,
-                vis_folder=vis, verbose=False, device=dev))
+        sub = os.path.join(tree, "overlay_views")
+        for node, view in stages._gather_views(
+                d["images"], d["proxies"], True)[:OVERLAY_VIEWS]:
+            rel = os.path.relpath(node.path, d["images"])
+            stem = os.path.splitext(view)[0]
+            for kind, names in (("images", [view]), ("proxies", [
+                    stem + "_sil.npy", stem + "_j2d.xml"])):
+                os.makedirs(os.path.join(sub, kind, rel), exist_ok=True)
+                for name in names:
+                    shutil.copy(os.path.join(d[kind], rel, name),
+                                os.path.join(sub, kind, rel, name))
+        runs, overlay_split = {}, {}
+        real = {"render": vis_mod.render_mesh_overlay,
+                "encode": io_formats.write_png}
+        for name, root_, n_v, vis in (
+                ("fits", tree, n_views, None),
+                ("with_overlays", sub, OVERLAY_VIEWS, d["vis_default"])):
+            vis_mod.render_mesh_overlay = timed(overlay_split, "render",
+                                                real["render"])
+            io_formats.write_png = timed(overlay_split, "png_encode",
+                                         real["encode"])
+            try:
+                runs[name] = counted(
+                    lambda: stages.single_view_optimization(
+                        assets, os.path.join(root_, "images"),
+                        os.path.join(root_, "proxies"),
+                        d["sgl_default"] + "_" + name,
+                        regressor_fn=regressor_fn, batch_size=STAGE_BATCH,
+                        vis_folder=vis, verbose=False, device=dev))
+            finally:
+                vis_mod.render_mesh_overlay = real["render"]
+                io_formats.write_png = real["encode"]
             res_d, _, k12_d, _ = runs[name]
-            check(k12_d == {"band_raster_fwd": df_it,
-                            "band_raster_bwd": df_it},
+            it = -(-n_v // STAGE_BATCH) * cfg.SINGLE_VIEW_ITERS
+            check(k12_d == {"band_raster_fwd": it, "band_raster_bwd": it},
                   "the default stage launched K1/K2 %s times" % k12_d)
-            check(res_d["count"] == n_views and all(np.isfinite(v)
-                                                    for v in res_d.values()),
+            check(res_d["count"] == n_v and all(np.isfinite(v)
+                                                for v in res_d.values()),
                   "the default stage gave %s" % res_d)
+        df_it = -(-n_views // STAGE_BATCH) * cfg.SINGLE_VIEW_ITERS
+        ov_it = -(-OVERLAY_VIEWS // STAGE_BATCH) * cfg.SINGLE_VIEW_ITERS
         df, df_s, df_k12, _ = runs["with_overlays"]
         fits_s = runs["fits"][1]
         overlays = sorted(os.path.join(p, f) for p, _, fs in
                           os.walk(d["vis_default"]) for f in fs)
-        check(len(overlays) == n_views, "%d overlays" % len(overlays))
+        check(len(overlays) == OVERLAY_VIEWS, "%d overlays" % len(overlays))
         with open(overlays[0], "rb") as f:
             overlay = decode_png(f.read())
         check(overlay.shape == (TREE_WH, TREE_WH, 3),
@@ -2125,14 +2226,21 @@ def main() -> int:
         k12_new.append(dict(k12_case(rows_verts2d(*rows32, TREE_WH),
                                      TREE_WH, K12_DEFAULT_PLAIN_B),
                             path="stage_default"))
-        k12_paths["stage_default"] = {k: runs["fits"][2][k] + df_k12[k]
-                                      for k in df_k12}
+        k12_paths["stage_default"] = {
+            k: sum(r[2][k] for r in runs.values()) for k in df_k12}
         emit("stage_default", t, batch=STAGE_BATCH, render_wh=TREE_WH,
              sigma=SIGMA, iters=cfg.SINGLE_VIEW_ITERS,
-             metrics=df, fits=timing(fits_s, df_it, n_views, "views"),
-             with_overlays=timing(df_s, df_it, n_views, "views"),
-             overlay_ms_each=round((df_s - fits_s) / n_views * 1e3, 3),
-             k1_k2_launches_per_run=df_k12, overlays=len(overlays),
+             metrics=runs["fits"][0],
+             fits=timing(fits_s, df_it, n_views, "views"),
+             overlay_views=OVERLAY_VIEWS, overlay_views_metrics=df,
+             with_overlays=timing(df_s, ov_it, OVERLAY_VIEWS, "views"),
+             overlay_ms_each=round(sum(overlay_split.values())
+                                   / OVERLAY_VIEWS * 1e3, 3),
+             overlay_split_ms_each={
+                 k: round(v / OVERLAY_VIEWS * 1e3, 3)
+                 for k, v in overlay_split.items()},
+             k1_k2_launches_per_run={k: v[2] for k, v in runs.items()},
+             overlays=len(overlays),
              overlay_shape=list(overlay.shape),
              kernels_at_shape={k: v for k, v in k12_new[-1].items()
                                if k != "max_abs"},
@@ -2229,37 +2337,17 @@ def main() -> int:
              predict_views=n_pred, k3_launches=cp_k3,
              k3_rgb_view=k3_new[-1], nvidia_smi=smi)
 
-        # -- cli: the command line as subprocesses on the card ---------------
+        # -- cli: the fits that need a scene's views, as subprocesses -------
+        # (predict, single-view and calc-metrics run on the clip's chain
+        # in e2e_clip; the single-view results multi-view starts from are
+        # made in process here.)
         t = time.time()
-        env = dict(os.environ, PYTHONPATH=root)
-
-        def cli(*args):
-            t_c = time.time()
-            child = subprocess.Popen(
-                [sys.executable, "-m", "soccerplayershapepose_torch", *args],
-                cwd=root, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)
-            _CHILDREN.append(child)
-            try:
-                out, err = child.communicate(timeout=CLI_TIMEOUT_S)
-            finally:
-                child.kill()
-                child.wait()
-                _CHILDREN.remove(child)
-            check(child.returncode == 0, "the CLI's %s exited %d: %s"
-                  % (args[0], child.returncode, err[-2000:]))
-            return (json.loads(out.strip().splitlines()[-1]),
-                    round(time.time() - t_c, 3))
-
         c = o
+        sv_one = stages.single_view_optimization(
+            assets, c["images"], c["proxies"], c["sgl"],
+            regressor_fn=regressor_fn, fit_cfg=FitConfig(iters=CLI_ITERS),
+            verbose=False, device=dev)
         runs = {
-            "predict": cli("predict", "--image-root", c["images"],
-                           "--proxy-root", c["proxies"], "--result-root",
-                           c["predict"]),
-            "single-view": cli("single-view", "--image-root", c["images"],
-                               "--proxy-root", c["proxies"],
-                               "--result-root", c["sgl"], "--iters",
-                               str(CLI_ITERS)),
             "multi-view": cli("multi-view", "--image-root", c["images"],
                               "--proxy-root", c["proxies"],
                               "--single-view-root", c["sgl"],
@@ -2268,47 +2356,434 @@ def main() -> int:
                               c["broad_images"], "--proxy-root",
                               c["broad_proxies"], "--multi-view-root",
                               c["mul"], "--result-root", c["broad"],
-                              "--iters", str(CLI_ITERS)),
-            "calc-metrics": cli("calc-metrics", "--root", c["broad"])}
+                              "--iters", str(CLI_ITERS))}
+        broad_metrics = io_formats.calc_metrics(c["broad"])
         n1 = TREE_PLAYERS * TREE_VIEWS
-        check(runs["predict"][0] == {"views": n1}
-              and runs["single-view"][0]["count"] == n1
+        check(sv_one["count"] == n1
               and runs["multi-view"][0]["count"] == TREE_PLAYERS
               and runs["broad-view"][0]["count"] == TREE_PLAYERS
-              and runs["calc-metrics"][0]["num_players"] == TREE_PLAYERS,
-              "the CLI printed %s" % {k: v[0] for k, v in runs.items()})
+              and broad_metrics["num_players"] == TREE_PLAYERS,
+              "the CLI printed %s, the broad tree's metrics %s"
+              % ({k: v[0] for k, v in runs.items()}, broad_metrics))
+        emit("cli", t, players=TREE_PLAYERS, views=TREE_VIEWS,
+             iters=CLI_ITERS, runs={k: {"json": v[0], "wall_s": v[1]}
+                                    for k, v in runs.items()},
+             broad_calc_metrics=broad_metrics, nvidia_smi=smi)
+        return k12_paths, k3_paths, k12_new, k3_new
+
+    def clip_phases(work: str, rgb_images: str):
+        """The one-clip rehearsal (e2e_clip) and the front end's stages in
+        process (front_stages) under ``work``; ``rgb_images`` is the RGB
+        scene's per-view crop tree that create_proxy wrote. Returns the
+        K1/K2 and K3 launches by path and the new K1/K2 and K3 shapes."""
+        import cv2
+        from soccerplayershapepose_torch.pipeline import (
+            classification, video)
+        from soccerplayershapepose_torch.pipeline import extract as textract
+        from soccerplayershapepose_torch import cli as tcli
+        k12_paths, k3_paths, k12_new, k3_new = {}, {}, [], []
+        with open(os.path.join(root, E2E_CLIP_RECORD)) as f:
+            clip_record = json.load(f)
+        rec_cm = clip_record["calc_metrics"]["result"]
+        d = {k: os.path.join(work, "clip", k) for k in (
+            "Broad", "BroadBox", "BroadPlayer", "BroadProxy", "SglInit",
+            "Sgl", "predict_in_process", "det", "crop_player", "box_index",
+            "players_index", "sgl_default", "profile_default")}
+        clip_path = os.path.join(work, "clip", "clip.mp4")
+        os.makedirs(os.path.dirname(clip_path))
+
+        # -- e2e_clip: video -> gate -> boxes, crops -> proxies -> fits ----
+        t = time.time()
+        h, w = CLIP_HW
+        gen = torch.Generator(device=dev).manual_seed(CLIP_SEED)
+        frame_draws, crop_draws = [], []
+
+        def make_clip():
+            wide, close = [], []
+            for _ in range(0, CLIP_WIDE, CLIP_BATCH):
+                frame_draws.append(synth.sample_frame_draws(
+                    gen, CLIP_BATCH, CLIP_PLAYERS, CLIP_HW))
+                b = synth.render_frame_batch(assets, frame_draws[-1], CLIP_HW)
+                wide += list(straps.crop_images_u8(b["image"]).cpu().numpy())
+            for _ in range(0, CLIP_CLOSE, CLIP_BATCH):
+                crop_draws.append(synth.sample_crop_draws(
+                    gen, CLIP_BATCH, image_wh=CLIP_CROP_WH))
+                b = synth.render_crop_batch(assets, crop_draws[-1],
+                                            CLIP_CROP_WH, with_image=True)
+                for img in straps.crop_images_u8(b["image"]).cpu().numpy():
+                    canvas = np.zeros((h, w, 3), np.uint8)
+                    x0 = (w - CLIP_CROP_WH) // 2
+                    canvas[:, x0:x0 + CLIP_CROP_WH] = img
+                    close.append(canvas)
+            # Close-ups scattered through the broadcast, as the rehearsal
+            # script interleaves them.
+            order = wide[:]
+            step = max(len(order) // (len(close) + 1), 1)
+            for k, c in enumerate(close):
+                order.insert(min((k + 1) * step + k, len(order)), c)
+            vw = cv2.VideoWriter(clip_path, cv2.VideoWriter_fourcc(*"mp4v"),
+                                 CLIP_FPS, (w, h))
+            check(vw.isOpened(), "cv2 cannot write an mp4v clip")
+            for f in order:
+                vw.write(np.ascontiguousarray(f[..., ::-1]))
+            vw.release()
+            return len(wide), len(close)
+
+        (n_wide, n_close), synth_s, _, clip_k3 = counted(make_clip)
+        n_frames = video.video_frame_count(clip_path)
+        check(n_frames == n_wide + n_close and clip_k3 == (
+            CLIP_WIDE // CLIP_BATCH + 2 * (CLIP_CLOSE // CLIP_BATCH)),
+            "the clip holds %d frames, its synthesis launched K3 %d times"
+            % (n_frames, clip_k3))
+        k3_paths["e2e_clip_synthesis"] = clip_k3
+        runs = {}
+        runs["harvest-frames"] = cli(
+            "harvest-frames", "--video", clip_path, "--out-root", d["Broad"],
+            "--n-samples", str(CLIP_SAMPLES), "--max-accepted",
+            str(CLIP_MAX_ACCEPTED), "--height", str(h), "--width", str(w),
+            "--classifier-params", os.path.join(root, CLS_WEIGHTS))
+        runs["crop-broad-player"] = cli(
+            "crop-broad-player", "--frame-root", d["Broad"], "--box-root",
+            d["BroadBox"], "--player-root", d["BroadPlayer"])
+        runs["create-proxy"] = cli("create-proxy", "--image-root",
+                                   d["BroadPlayer"], "--proxy-root",
+                                   d["BroadProxy"])
+        runs["predict"] = cli("predict", "--image-root", d["BroadPlayer"],
+                              "--proxy-root", d["BroadProxy"],
+                              "--result-root", d["SglInit"])
+        runs["single-view"] = cli("single-view", "--image-root",
+                                  d["BroadPlayer"], "--proxy-root",
+                                  d["BroadProxy"], "--result-root", d["Sgl"],
+                                  "--iters", str(CLIP_ITERS))
+        runs["calc-metrics"] = cli("calc-metrics", "--root", d["Sgl"])
+        hv, cb, cp_out, pr, sv, cm = (runs[k][0] for k in (
+            "harvest-frames", "crop-broad-player", "create-proxy", "predict",
+            "single-view", "calc-metrics"))
+        harvest = hv["videos"][0]
+        game_dir = os.path.join(d["Broad"], harvest["game"])
+        check(0 < hv["accepted"] <= CLIP_MAX_ACCEPTED and all(
+            os.path.isfile(os.path.join(game_dir, s_, "broad.png"))
+            for s_ in harvest["scenes"]),
+            "harvest-frames printed %s" % hv)
+        n_boxes = sum(len(io_formats.read_boxes(os.path.join(p, f)))
+                      for p, _, fs in os.walk(d["BroadBox"]) for f in fs
+                      if f == "boxes.xml")
+        n_crops = sum(f == "player.png" for _, _, fs in
+                      os.walk(d["BroadPlayer"]) for f in fs)
+        check(cb["boxes"] == cb["images"]["crops"] == n_boxes == n_crops > 0,
+              "crop-broad-player printed %s; %d boxes and %d crops on disk"
+              % (cb, n_boxes, n_crops))
+        proxied = sorted(os.path.relpath(p, d["BroadProxy"])
+                         for p, _, fs in os.walk(d["BroadProxy"]) for f in fs
+                         if f.endswith("_sil.npy"))
+        check(len(proxied) >= CLIP_PROXY_FRAC * n_crops,
+              "create-proxy wrote %d proxies for %d crops (%s)"
+              % (len(proxied), n_crops, cp_out))
+        ref_shapes = {"body_pose": (1, 23, 3, 3),
+                      "global_orient": (1, 1, 3, 3), "betas": (1, 10),
+                      "translation": (1, 3)}
+        n_npz = 0
+        for p, _, fs in os.walk(d["SglInit"]):
+            for f in fs:
+                z = io_formats.read_fit_npz(os.path.join(p, f))
+                check(all(z[k].shape == s_ and z[k].dtype == np.float32
+                          and np.isfinite(z[k]).all()
+                          for k, s_ in ref_shapes.items()),
+                      "predict wrote %s with shapes %s" % (
+                          f, {k: v.shape for k, v in z.items()}))
+                n_npz += 1
+        check(pr == {"views": len(proxied)} and n_npz == len(proxied),
+              "predict printed %s and wrote %d files for %d proxied views"
+              % (pr, n_npz, len(proxied)))
+        check(sv["count"] == len(proxied) and cm["num_players"] == sv["count"],
+              "single-view fitted %s views, calc-metrics counted %s"
+              % (sv["count"], cm["num_players"]))
         # The CLI's predict files against the in-process stage on the card.
-        in_proc = os.path.join(one, "predict_in_process")
-        stages.predict_stage(assets, c["proxies"], c["images"], in_proc,
+        stages.predict_stage(assets, d["BroadProxy"], d["BroadPlayer"],
+                             d["predict_in_process"],
                              regressor_fn=regressor_fn, device=dev)
         cli_err = 0.0
-        for p, _, fs in os.walk(c["predict"]):
+        for p, _, fs in os.walk(d["SglInit"]):
             for f in fs:
                 a = io_formats.read_fit_npz(os.path.join(p, f))
                 b = io_formats.read_fit_npz(os.path.join(
-                    p.replace(c["predict"], in_proc), f))
+                    p.replace(d["SglInit"], d["predict_in_process"]), f))
                 for k in a:
                     scale = np.abs(b[k]).max() if k == "translation" else 1.0
                     cli_err = max(cli_err, float(np.abs(a[k] - b[k]).max()
                                                  / scale))
         check(cli_err <= CLI_TOL, "the CLI's predict files differ from the "
               "in-process stage by %.3g" % cli_err)
-        emit("cli", t, players=TREE_PLAYERS, views=TREE_VIEWS,
-             iters=CLI_ITERS, runs={k: {"json": v[0], "wall_s": v[1]}
-                                    for k, v in runs.items()},
-             predict_vs_in_process_max=cli_err, tol=CLI_TOL)
+        held = {}
+        for k in ("mean_silh_iou", "mean_joint_err"):
+            held[k] = [cm[k], rec_cm[k]]
+        within = all(np.isfinite(g) and abs(g - r) <= RECORD_REL * abs(r)
+                     for g, r in held.values())
+        emit("e2e_clip", t, seed=CLIP_SEED, hw=list(CLIP_HW),
+             wide_frames=n_wide, closeup_frames=n_close,
+             players_per_frame=CLIP_PLAYERS, clip_frames=n_frames,
+             synthesis_wall_s=round(synth_s, 4), k3_launches=clip_k3,
+             runs={k: {"json": v[0], "wall_s": v[1]}
+                   for k, v in runs.items()},
+             record=E2E_CLIP_RECORD,
+             record_walls_s={k: clip_record[k]["wall_s"] for k in (
+                 "harvest", "crop_broad", "create_proxy", "predict",
+                 "single_view", "calc_metrics")},
+             proxied_views=len(proxied), crops=n_crops,
+             held_to_record=held, record_rel_tol=RECORD_REL,
+             within_record=within,
+             predict_vs_in_process_max=cli_err, tol=CLI_TOL, nvidia_smi=smi)
+        check(within, "the clip's calc-metrics %s are not within %d%% of the "
+              "record" % (held, RECORD_REL * 100))
+
+        # -- classifier_parity: the gate on the card vs the CPU ------------
+        t = time.time()
+        # The frames harvest-frames sampled (its seed 0), in its order.
+        pairs = list(video.sample_video_frames(
+            clip_path, CLIP_SAMPLES, seed=0,
+            size_hw=CLIP_HW))[:harvest["sampled"]]
+        positions = [p_ for p_, _ in pairs]
+        sampled = [f for _, f in pairs]
+        gate = classification.load_classifier(
+            os.path.join(root, CLS_WEIGHTS), dev)
+        gate_cpu = classification.load_classifier(
+            os.path.join(root, CLS_WEIGHTS), "cpu")
+        feats = np.stack([gate.feature_fn(f) for f in sampled])
+        feats_cpu = np.stack([gate_cpu.feature_fn(f) for f in sampled])
+        logits = np.stack([gate.logits(f) for f in sampled])
+        logits_cpu = np.stack([gate_cpu.logits(f) for f in sampled])
+        feat_rel = float(np.abs(feats - feats_cpu).max()
+                         / np.abs(feats_cpu).max())
+        logit_gap = float(np.abs(logits - logits_cpu).max())
+        logit_rel = logit_gap / float(np.abs(logits_cpu).max())
+        check(feat_rel <= CLS_TOL and logit_rel <= CLS_TOL,
+              "the classifier on the card differs from the CPU: features "
+              "%.3g, logits %.3g relative" % (feat_rel, logit_rel))
+        accept = logits.argmax(1) == 1
+        accept_cpu = logits_cpu.argmax(1) == 1
+        margin = np.abs(logits_cpu[:, 1] - logits_cpu[:, 0])
+        flips = accept != accept_cpu
+        check(bool((margin[flips] <= 2 * logit_gap).all()),
+              "a decision differs at a margin above twice the logit gap")
+        # The in-process gate reproduces the CLI's accepted scenes (one
+        # name per accepted draw; the draws repeat positions): each draw
+        # harvest-frames classified is accepted there exactly when the gate
+        # here accepts it, but for a near-tie (a margin within twice the
+        # card-vs-CPU logit gap), which may go either way.
+        near_tie = margin <= 2 * logit_gap
+        names = ["%08d" % p_ for p_ in positions]
+        cli_kept = Counter(harvest["scenes"])
+        gate_kept = Counter(n_ for n_, a in zip(names, accept) if a)
+        sure = Counter(n_ for n_, a, nt in zip(names, accept, near_tie)
+                       if a and not nt)
+        maybe = Counter(n_ for n_, a, nt in zip(names, accept, near_tie)
+                        if a or nt)
+        check(not (sure - cli_kept) and not (cli_kept - maybe),
+              "the gate accepts %s, harvest-frames %s"
+              % (sorted(gate_kept.elements()), harvest["scenes"]))
+        for f in sampled[:2]:
+            gate.process(f)
+        torch.cuda.synchronize()
+        t_g = time.time()
+        for f in sampled:
+            gate.process(f)
+        gate_ms = (time.time() - t_g) / len(sampled) * 1e3
+        t_p = time.time()
+        for f in sampled:
+            classification.preprocess_frame(f)
+        pre_ms = (time.time() - t_p) / len(sampled) * 1e3
+        emit("classifier_parity", t, weights=CLS_WEIGHTS,
+             frames=len(sampled), accepted_card=int(accept.sum()),
+             accepted_cpu=int(accept_cpu.sum()), feature_max_rel=feat_rel,
+             logit_max_rel=logit_rel, logit_gap=logit_gap, tol=CLS_TOL,
+             near_tie_flips=int(flips.sum()),
+             min_margin=float(margin.min()),
+             gate_ms_per_frame=round(gate_ms, 3),
+             preprocess_ms_per_frame=round(pre_ms, 3),
+             near_tie_draws=int(near_tie.sum()),
+             matches_cli=gate_kept == cli_kept, nvidia_smi=smi)
+
+        # -- front_stages: the detect and crop stages in process -----------
+        t = time.time()
+        det_thresh = tcli._resolve_score_thresh(
+            argparse.Namespace(score_thresh=None),
+            os.path.join(root, DET_WEIGHTS))
+        det_model = load_detector_weights(os.path.join(root, DET_WEIGHTS),
+                                          dev)
+        split = {}
+        real = {"read": textract.read_image, "encode": io_formats.write_png}
+
+        def run_stage(fn, runner):
+            """``fn(runner)`` timed, its wall split into the detector's
+            forward (numpy boxes out, so the card has finished), the PNG
+            reads and encodes, and the host crop and resize (the rest)."""
+            split.clear()
+            textract.read_image = timed(split, "png_read", real["read"])
+            io_formats.write_png = timed(split, "png_encode", real["encode"])
+            try:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = fn(runner)
+                wall = time.time() - t0
+            finally:
+                textract.read_image = real["read"]
+                io_formats.write_png = real["encode"]
+            rest = wall - sum(split.values())
+            return out, {"wall_s": round(wall, 4),
+                         **{k + "_s": round(v, 4) for k, v in split.items()},
+                         "host_crop_resize_s": round(rest, 4)}
+
+        class Runner(textract.PlayerDetectorRunner):
+            def __call__(self, frames_u8):
+                return timed(split, "detector", super().__call__)(frames_u8)
+
+        det, det_t = run_stage(lambda r: textract.detect_players_stage(
+            r, d["Broad"], d["det"]), Runner(
+                det_model, CLIP_HW, score_thresh=det_thresh, device=dev))
+        det_files = [os.path.relpath(os.path.join(p, f), d["det"])
+                     for p, _, fs in os.walk(d["det"]) for f in fs]
+        n_scenes = len(os.listdir(game_dir))
+        det_boxes = {}
+        for f in det_files:
+            if f.endswith("boxes.xml"):
+                det_boxes[os.path.dirname(f)] = io_formats.read_boxes(
+                    os.path.join(d["det"], f))
+        box_gap = max(float(np.abs(b_ - io_formats.read_boxes(os.path.join(
+            d["BroadBox"], s_, "boxes.xml"))).max(initial=0.0))
+            for s_, b_ in det_boxes.items())
+        check(det["scenes"] == n_scenes == len(det_boxes)
+              and det["boxes"] == cb["boxes"] and box_gap <= 1e-3
+              and sum(f.endswith("player.png") for f in det_files)
+              == det["boxes"],
+              "detect_players_stage gave %s, %d scenes, boxes %.3g px from "
+              "the CLI's" % (det, n_scenes, box_gap))
+        views = sorted(os.path.relpath(os.path.join(p, f), rgb_images)
+                       for p, _, fs in os.walk(rgb_images) for f in fs
+                       if f.endswith(".png"))
+        cp_res, cp_t = run_stage(lambda r: textract.crop_player_stage(
+            r, rgb_images, d["crop_player"], save_mid=True), Runner(
+                det_model, CROP_PLAYER_HW, score_thresh=det_thresh,
+                device=dev))
+        cp_files = sorted(os.path.relpath(os.path.join(p, f),
+                                          d["crop_player"])
+                          for p, _, fs in os.walk(d["crop_player"])
+                          for f in fs)
+        check(cp_res["written"] + len(cp_res["missed"]) == len(views)
+              and cp_res["written"] > 0 and cp_res["skipped"] == 0
+              and len(cp_files) == 2 * cp_res["written"],
+              "crop_player_stage gave %s for %d views, %d files"
+              % ({k: v for k, v in cp_res.items() if k != "missed"},
+                 len(views), len(cp_files)))
+        with open(os.path.join(d["crop_player"], cp_files[0]), "rb") as f:
+            check(decode_png(f.read()).shape == (512, 512, 3),
+                  "crop_player_stage's crops are not 512^2 RGB")
+        # The box tree again with an index.xml for its first scene: its
+        # players are written under the given ids.
+        shutil.copytree(d["BroadBox"], d["box_index"])
+        first = next(s_ for s_ in sorted(det_boxes) if len(det_boxes[s_]))
+        n_first = len(det_boxes[first])
+        ids = list(range(100, 100 + n_first))
+        io_formats.write_index(os.path.join(d["box_index"], first,
+                                            "index.xml"), ids)
+        ix, ix_t = run_stage(lambda r: textract.crop_broad_player_images_stage(
+            d["box_index"], d["Broad"], d["players_index"]), None)
+        check(ix == {"scenes": n_scenes, "crops": cb["boxes"]}
+              and sorted(os.listdir(os.path.join(d["players_index"], first)))
+              == sorted(str(i) for i in ids),
+              "crop_broad_player_images_stage gave %s" % ix)
+        emit("front_stages", t, score_thresh=det_thresh,
+             detect_players=dict(det, hw=list(CLIP_HW), **det_t),
+             crop_player=dict(written=cp_res["written"],
+                              missed=len(cp_res["missed"]),
+                              views=len(views), hw=list(CROP_PLAYER_HW),
+                              **cp_t),
+             crop_broad_player_images=dict(ix, indexed_scene=first, **ix_t),
+             nvidia_smi=smi)
+
+        # -- clip_single_view: the stage at its defaults on the clip --------
+        t = time.time()
+        n_views = len(proxied)
+        sv_b = -(-n_views // STAGE_BATCH)
+        sv_d, sv_s, sv_k12, _ = counted(
+            lambda: stages.single_view_optimization(
+                assets, d["BroadPlayer"], d["BroadProxy"], d["sgl_default"],
+                regressor_fn=regressor_fn, batch_size=STAGE_BATCH,
+                verbose=False, device=dev))
+        sv_it = sv_b * cfg.SINGLE_VIEW_ITERS
+        check(sv_k12 == {"band_raster_fwd": sv_it, "band_raster_bwd": sv_it}
+              and sv_d["count"] == n_views,
+              "the clip's default stage launched K1/K2 %s times for %s"
+              % (sv_k12, sv_d))
+        check(sv_d["opt_iou"] > sv_d["init_iou"]
+              and sv_d["opt_err"] < sv_d["init_err"],
+              "the clip's default fit does not improve IoU and joint error: "
+              "%s" % sv_d)
+        k12_paths["clip_single_view"] = sv_k12
+        # K1/K2 at the stage's shape: its first batch, the regressor's
+        # init of the clip's first 32 views (the last repeated up to 32,
+        # as the stage pads), rendered at 512^2.
+        nodes = stages._gather_views(d["BroadPlayer"], d["BroadProxy"],
+                                     True)[:STAGE_BATCH]
+        nodes += nodes[-1:] * (STAGE_BATCH - len(nodes))   # as _pad_batch
+        sils, j2ds = [], []
+        for node, view in nodes:
+            s_i, j_i = stages.load_proxy_batch(
+                os.path.join(d["BroadProxy"], node.game, node.scene,
+                             node.player), [view])
+            sils.append(s_i[0])
+            j2ds.append(j_i[0])
+        with torch.no_grad():
+            init = regressor_fn(assets, torch.from_numpy(np.stack(sils)).to(
+                dev), torch.from_numpy(np.stack(j2ds)).to(dev))
+        rot = init.pose_rotmats
+        k12_new.append(dict(k12_case(
+            rows_verts2d(rot[:, 1:], rot[:, :1], init.betas, init.cam_wp,
+                         TREE_WH), TREE_WH, K12_DEFAULT_PLAIN_B),
+            path="clip_single_view"))
+        emit("clip_single_view", t, batch=STAGE_BATCH, render_wh=TREE_WH,
+             iters=cfg.SINGLE_VIEW_ITERS, views=n_views, metrics=sv_d,
+             wall_s=round(sv_s, 4), iterations=sv_it,
+             ms_per_iter=round(sv_s / sv_it * 1e3, 3),
+             views_per_s=round(n_views / sv_s, 3), k1_k2_launches=sv_k12,
+             kernels_at_shape={k: v for k, v in k12_new[-1].items()
+                               if k != "max_abs"},
+             profile_note="%d iterations a batch" % PROFILE_ITERS,
+             profile=device_profile(lambda: stages.single_view_optimization(
+                 assets, d["BroadPlayer"], d["BroadProxy"],
+                 d["profile_default"], regressor_fn=regressor_fn,
+                 batch_size=STAGE_BATCH,
+                 fit_cfg=dataclasses.replace(FitConfig(),
+                                             iters=PROFILE_ITERS),
+                 verbose=False, device=dev)), nvidia_smi=smi)
+
+        # -- k3_clip_parity: K3 at the clip's frame and close-up passes ----
+        t = time.time()
+        fscn = synth.frame_scene(assets, frame_draws[0], CLIP_HW)
+        cscn = synth.crop_scene(assets, synth.draws_to(crop_draws[0], dev),
+                                CLIP_CROP_WH)
+        k3_clip = [dict(k3_case(fscn, CLIP_BATCH, fscn["wh"], 1.0,
+                                K3_CLIP_PLAIN_B), path="e2e_clip_frames")]
+        k3_clip += [dict(k3_case(cscn, CLIP_BATCH, wh_, scale),
+                         path="e2e_clip_closeups")
+                    for wh_, scale in ((CLIP_CROP_WH, 1.0),
+                                       (CLIP_CROP_WH // 4, 0.25))]
+        emit("k3_clip_parity", t, flops_per_pair=K3_FLOPS_PER_PAIR,
+             shapes=k3_clip, nvidia_smi=smi)
+        k3_new += k3_clip
         return k12_paths, k3_paths, k12_new, k3_new
 
     work = tempfile.mkdtemp(prefix="_smoke_", dir=root)
     _WORK_DIRS.append(work)
     try:
-        tree_k12, tree_k3, tree_k12_shapes, tree_k3_shapes = tree_phases(work)
+        for phases in (lambda: tree_phases(work), lambda: clip_phases(
+                work, os.path.join(work, "rgb", "images"))):
+            phases = phases()
+            k12_launches.update(phases[0])
+            k3_fit_launches.update(phases[1])
+            k12 += phases[2]
+            k3 += phases[3]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    k12_launches.update(tree_k12)
-    k3_fit_launches.update(tree_k3)
-    k12 += tree_k12_shapes
-    k3 += tree_k3_shapes
 
     # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
     k3_launches_pn = {}
@@ -2363,10 +2838,10 @@ def main() -> int:
 
     kernels = []
     # K1 and K2 run once per fit iteration (K1 alone in a forward-only
-    # evaluation) on eight paths: the 22-player fit, the three GT-3D
+    # evaluation) on nine paths: the 22-player fit, the three GT-3D
     # evaluations, the broadcast-view fit (with the multi-view fit its
     # pose comes from), the track bench, the mint chain of stages and
-    # the single-view stage at its defaults. Their times are the mean per
+    # the single-view stage at its defaults on the tree and on the clip. Their times are the mean per
     # launch over the path shapes of "shapes" (the plain versions' on
     # plain_b of the b rows), their pairs the sum over them.
     for name, line in (("band_raster_fwd", 33), ("band_raster_bwd", 475)):
@@ -2396,15 +2871,17 @@ def main() -> int:
                 "pairs_evaluated": r["pairs_evaluated"][name],
                 "bound_ms_chunk_level": r["bound_ms_chunk_level"][name]}
                 for r in k12]})
-    # K3 runs once at each pass shape per batch, on twelve paths: the
+    # K3 runs once at each pass shape per batch, on thirteen paths: the
     # synthetic evaluation and ProxyNet's at 512² (512² and 128² passes),
     # the e2e evaluation and ProxyNet's at 256² (256² and 64²), the
     # detector's evaluation (one 448² pass per batch of 16 frames), the
     # frame pipeline's synthesis (one 896² pass for its 2 frames), the
-    # single-view GT-3D evaluation's crops (512², 128²), and the scene
+    # single-view GT-3D evaluation's crops (512², 128²), the scene
     # renders (one 512² pass per view, or per track batch) of the
     # multi-view and track evaluations, the broadcast-view fit, the
-    # stage tree and the create-proxy scene (with colour channels). Its
+    # stage tree and the create-proxy scene (with colour channels), and
+    # the one clip's synthesis (448² per pair of wide frames, 256² and
+    # 64² per pair of close-ups). Its
     # times are the mean per launch over the pass shapes, its pairs the
     # sum over them; "shapes" gives each (the plain version's time on
     # plain_b of the b images), "launches_by_path" each path's count.

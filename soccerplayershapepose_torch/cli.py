@@ -9,14 +9,19 @@ the same ``<root>/<game>/<scene>/<player>/<view>`` trees:
     python -m soccerplayershapepose_torch multi-view ... --single-view-root ...
     python -m soccerplayershapepose_torch broad-view ... --multi-view-root ...
     python -m soccerplayershapepose_torch calc-metrics --root ...
+    python -m soccerplayershapepose_torch harvest-frames --video ... --out-root ...
+    python -m soccerplayershapepose_torch crop-broad-player --frame-root ... --box-root ...
+    python -m soccerplayershapepose_torch detect-players --frame-root ... --out-root ...
+    python -m soccerplayershapepose_torch crop-player --image-root ... --out-root ...
 
 Each stage runs on ``--device`` (default ``cuda``; it refuses to start
 where there is no card rather than fall back to the CPU; ``--device cpu``
 runs the plain PyTorch path) and prints one JSON line last. The regressor
 is the committed ``weights/regressor*_f16.npz`` (the random seeded one if
-there is none). The subcommands ``detect-players``, ``crop-player``,
-``crop-broad-player``, ``harvest-frames``, ``train`` and
-``train-perception`` are not ported yet.
+there is none), the detector ``weights/detector*_f16.npz`` at its measured
+best-F1 score threshold (the sibling ``.json``), the frame classifier the
+bundle given to ``harvest-frames --classifier-params``. The subcommands
+``train`` and ``train-perception`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -123,6 +128,53 @@ def _require_weights(kind: str) -> str:
     return path
 
 
+def _resolve_score_thresh(args, weights: str) -> float:
+    """--score-thresh, else the weights artifact's measured best-F1
+    operating point (its sibling .json), else 0.7."""
+    if args.score_thresh is not None:
+        return args.score_thresh
+    meta = os.path.splitext(weights)[0] + ".json"
+    if os.path.exists(meta):
+        try:
+            with open(meta) as f:
+                t = json.load(f).get("best_f1_score_thresh")
+            if t and 0.0 < t < 1.0:
+                return float(t)
+        except (OSError, ValueError, AttributeError):
+            pass
+    from soccerplayershapepose_torch import config as cfg
+    return cfg.DETECTION_SCORE_THRESH
+
+
+def _add_detector_args(p: argparse.ArgumentParser, width: int,
+                       batch_size: int):
+    p.add_argument("--weights", default=None,
+                   help="detector weights .npz (default: committed "
+                        "weights/detector*_f16.npz artifact)")
+    p.add_argument("--height", type=int, default=256)
+    p.add_argument("--width", type=int, default=width)
+    p.add_argument("--batch-size", type=int, default=batch_size)
+    p.add_argument("--score-thresh", type=float, default=None,
+                   help="detection score threshold (default: the weights "
+                        "artifact's measured best-F1 operating point, else "
+                        "0.7)")
+    p.add_argument("--flip-tta", action="store_true",
+                   help="horizontal-flip ensemble for detections")
+    _add_device_arg(p)
+
+
+def _detector_runner(args):
+    from soccerplayershapepose_torch.convert import load_detector_weights
+    from soccerplayershapepose_torch.pipeline.extract import (
+        PlayerDetectorRunner)
+    weights = args.weights or _require_weights("detector")
+    model = load_detector_weights(weights, args.device)
+    return PlayerDetectorRunner(
+        model, (args.height, args.width),
+        score_thresh=_resolve_score_thresh(args, weights),
+        flip_tta=args.flip_tta, device=args.device)
+
+
 def main(argv=None) -> int:
     from soccerplayershapepose_torch import config as cfg
 
@@ -171,7 +223,105 @@ def main(argv=None) -> int:
                         "(default on; one 2B-batch forward)")
     _add_device_arg(p)
 
+    p = sub.add_parser("detect-players",
+                       help="detect and crop players from raw frames")
+    p.add_argument("--frame-root", required=True)
+    p.add_argument("--out-root", required=True)
+    _add_detector_args(p, width=448, batch_size=4)
+
+    p = sub.add_parser("crop-player",
+                       help="per-view centre-player crops over a "
+                            "<game>/<scene>/<player>/<view> tree")
+    p.add_argument("--image-root", required=True)
+    p.add_argument("--out-root", required=True)
+    p.add_argument("--keep-player-one", action="store_true")
+    p.add_argument("--skip-if-present", default=None,
+                   help="broadcast tree root (check_board semantics)")
+    p.add_argument("--save-mid", action="store_true")
+    _add_detector_args(p, width=256, batch_size=8)
+
+    p = sub.add_parser("crop-broad-player",
+                       help="broadcast boxes.xml + vis, then index.xml-"
+                            "driven player crops")
+    p.add_argument("--frame-root", required=True)
+    p.add_argument("--box-root", required=True)
+    p.add_argument("--vis-root", default=None)
+    p.add_argument("--player-root", default=None,
+                   help="also write <index>/player.png crops here")
+    _add_detector_args(p, width=448, batch_size=4)
+
+    p = sub.add_parser("harvest-frames",
+                       help="match video -> classified <game>/<scene> "
+                            "frame tree")
+    p.add_argument("--video", required=True, nargs="+",
+                   help="one or more video files")
+    p.add_argument("--out-root", required=True)
+    p.add_argument("--classifier-params", default=None,
+                   help="frame classifier bundle .npz "
+                        "(pipeline/classification.py); omit to accept "
+                        "every sampled frame")
+    p.add_argument("--n-samples", type=int, default=500,
+                   help="random frames sampled per video")
+    p.add_argument("--max-accepted", type=int, default=200,
+                   help="accepted frames kept per video")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--height", type=int, default=1080)
+    p.add_argument("--width", type=int, default=1920)
+    _add_device_arg(p)
+
     args = parser.parse_args(argv)
+
+    if args.command == "harvest-frames":
+        from soccerplayershapepose_torch.pipeline.classification import \
+            load_classifier
+        from soccerplayershapepose_torch.pipeline.video import \
+            harvest_frames_stage
+        from soccerplayershapepose_torch.utils.precision import \
+            default_device
+        default_device(args.device)
+        gate = (load_classifier(args.classifier_params, args.device)
+                if args.classifier_params else None)
+        results = []
+        for k, video in enumerate(args.video):
+            results.append(harvest_frames_stage(
+                video, args.out_root, classifier=gate,
+                n_samples=args.n_samples, max_accepted=args.max_accepted,
+                seed=args.seed + k, size_hw=(args.height, args.width)))
+        print(json.dumps({"videos": results,
+                          "accepted": sum(r["accepted"] for r in results)}))
+        return 0
+
+    if args.command == "detect-players":
+        from soccerplayershapepose_torch.pipeline.extract import (
+            detect_players_stage)
+        out = detect_players_stage(_detector_runner(args), args.frame_root,
+                                   args.out_root, batch_size=args.batch_size)
+        print(json.dumps(out))
+        return 0
+
+    if args.command == "crop-player":
+        from soccerplayershapepose_torch.pipeline.extract import (
+            crop_player_stage)
+        out = crop_player_stage(
+            _detector_runner(args), args.image_root, args.out_root,
+            batch_size=args.batch_size,
+            skip_player_one=not args.keep_player_one,
+            skip_if_present_root=args.skip_if_present,
+            save_mid=args.save_mid)
+        print(json.dumps(out))
+        return 0
+
+    if args.command == "crop-broad-player":
+        from soccerplayershapepose_torch.pipeline.extract import (
+            crop_broad_player_images_stage, crop_broad_player_stage)
+        out = crop_broad_player_stage(_detector_runner(args), args.frame_root,
+                                      args.box_root, args.vis_root,
+                                      batch_size=args.batch_size)
+        if args.player_root:
+            out["images"] = crop_broad_player_images_stage(
+                args.box_root, args.frame_root, args.player_root)
+        print(json.dumps(out))
+        return 0
 
     if args.command == "calc-metrics":
         from soccerplayershapepose_torch.io import calc_metrics

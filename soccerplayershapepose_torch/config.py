@@ -57,7 +57,12 @@ REFINE_SCORE_THRESH = 10.0      # px joint error gating human refinement
 FITTING_INIT_LOSS_WEIGHTS = {"joints2D": 1.0, "silhouette": 1000000.0}
 MAX_PLAYERS_PER_FRAME = 22
 
-# The detector's operating point (score ≥ 0.7, person class) and the border
-# grown around a player's box before it is squared into a crop.
+# The detector's operating point (score ≥ 0.7, person class); the crops'
+# size and the border grown around a player's box before it is squared
+# into a crop (40 px per view, 15 px in a broadcast frame), and the field
+# green (BGR) that pads a crop where it leaves the frame.
 DETECTION_SCORE_THRESH = 0.7
+PLAYER_CROP_SIZE = (512, 512)
 PLAYER_CROP_BORDER = 40
+PLAYER_CROP_BORDER_BROAD = 15
+CROP_PAD_COLOR_BGR = (53, 88, 83)

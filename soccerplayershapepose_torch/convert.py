@@ -6,9 +6,12 @@ a fit's initial parameters become the port's tensors, so both packages can
 compute on the same numbers. The committed flax regressor weights
 (``weights/*.npz``, flat keys as ``train/checkpoint.py:_flatten`` writes
 them) load into :class:`SingleInputRegressor`, the committed ProxyNet
-weights (``weights/proxynet_*_f16.npz``) into :class:`ProxyNet` and the
+weights (``weights/proxynet_*_f16.npz``) into :class:`ProxyNet`, the
 detector's (``weights/detector_256x448_f16.npz``) into
-:class:`PlayerDetector` at run time. Nothing is written to disk.
+:class:`PlayerDetector` and the frame classifier's
+(``weights/frame_classifier.npz``) into :class:`ClassifyNet` and
+:class:`FrameFeatureNet` at run time. Nothing is written to disk but a
+classifier bundle, in the JAX package's layout, when one is saved.
 """
 
 from __future__ import annotations
@@ -23,9 +26,12 @@ import torch
 
 from soccerplayershapepose_torch import config as cfg
 from soccerplayershapepose_torch.fit.engine import FitInit
+from soccerplayershapepose_torch.models.classifier import ClassifyNet
 from soccerplayershapepose_torch.models.detector import PlayerDetector
 from soccerplayershapepose_torch.models.perception import ProxyNet
 from soccerplayershapepose_torch.models.regressor import SingleInputRegressor
+from soccerplayershapepose_torch.pipeline.classification import (
+    FrameFeatureNet)
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, as_f32, default_device)
@@ -223,3 +229,111 @@ def load_detector_weights(path: str, device: DeviceLike = None
     _load_strict(model, detector_state_dict_from_flat(flat), path,
                  "PlayerDetector")
     return model.to(dev).eval()
+
+
+def _classifier_module_name(prefix: str, top: str, path: list) -> str:
+    """flax module path of a classifier bundle's variable → the
+    :class:`ClassifyNet` (``head``) or :class:`FrameFeatureNet`
+    (``features``) submodule that holds it: ``Dense_k`` → ``fcs.k`` in the
+    head, ``Dense_0`` → ``fc`` and ``ResNet_0/...`` → ``encoder...`` (as
+    the regressor's trunk) in the features."""
+    if not path and top.startswith("Dense_"):
+        k = int(top.split("_")[1])
+        if prefix == "head":
+            return "fcs.%d" % k
+        if k == 0:
+            return "fc"
+    if prefix == "features" and top == "ResNet_0":
+        return _module_name(top, path)
+    raise KeyError("/".join([prefix, top] + path))
+
+
+def classifier_state_dict_from_flat(flat: dict) -> dict:
+    """Flat classifier bundle (``head/params/Dense_0/kernel``,
+    ``features/params/ResNet_0/Conv_0/kernel``,
+    ``features/batch_stats/ResNet_0/BatchNorm_0/mean``, …) →
+    ``{"head": state dict, "features": state dict}`` (``features`` only
+    when the bundle has them), with the regressor's mapping (HWIO → OIHW,
+    (in, out) → (out, in), BN names), everything cast to fp32."""
+    out = {}
+    for key, arr in flat.items():
+        prefix, _, rest = key.partition("/")
+        m = _FLAT_KEY.match(rest) or re.match(
+            r"^(params|batch_stats)/(\w+)()/(\w+)$", rest)
+        if prefix not in ("head", "features") or m is None:
+            raise KeyError("not a classifier bundle variable: %r" % key)
+        _, top, path, leaf = m.groups()
+        a = np.asarray(arr, np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        name = "%s.%s" % (_classifier_module_name(
+            prefix, top, path.split("/") if path else []), _LEAVES[leaf])
+        out.setdefault(prefix, {})[name] = torch.from_numpy(
+            np.ascontiguousarray(a))
+    return out
+
+
+def load_classifier_weights(path: str, device: DeviceLike = None):
+    """Read a classifier bundle (``weights/frame_classifier.npz``, or one
+    :func:`classifier_flat_from_modules` wrote) → ``(ClassifyNet,
+    FrameFeatureNet or None)`` in eval mode on ``device`` (None: the CUDA
+    card). The load is strict: every variable of the bundle is used and
+    every parameter and buffer of the nets is set."""
+    dev = default_device(device)
+    sds = classifier_state_dict_from_flat(_read_flat(path))
+    if "head" not in sds:
+        raise ValueError("weights %s hold no classifier head" % path)
+    head = _load_strict(ClassifyNet(), sds["head"], path, "ClassifyNet")
+    features = None
+    if "features" in sds:
+        features = _load_strict(FrameFeatureNet(), sds["features"], path,
+                                "FrameFeatureNet").to(dev).eval()
+    return head.to(dev).eval(), features
+
+
+def _flat_name(prefix: str, name: str):
+    """Inverse of :func:`_classifier_module_name` with the leaf:
+    a state-dict name → its flat bundle key, or None for BN's
+    ``num_batches_tracked``."""
+    mod, leaf = name.rsplit(".", 1)
+    if leaf == "num_batches_tracked":
+        return None
+    parts = mod.split(".")
+    if parts[0] == "fcs":
+        path = "Dense_%d" % int(parts[1])
+    elif parts[0] == "fc":
+        path = "Dense_0"
+    elif parts[:2] == ["encoder", "conv"]:
+        path = "ResNet_0/Conv_0"
+    elif parts[:2] == ["encoder", "norm"]:
+        path = "ResNet_0/BatchNorm_0"
+    else:       # encoder.blocks.i.{convs,norms}.j
+        kind = {"convs": "Conv", "norms": "BatchNorm"}[parts[3]]
+        path = "ResNet_0/BasicBlock_%d/%s_%d" % (int(parts[2]), kind,
+                                                 int(parts[4]))
+    is_norm = "BatchNorm" in path
+    flax_leaf = {"weight": "scale" if is_norm else "kernel", "bias": "bias",
+                 "running_mean": "mean", "running_var": "var"}[leaf]
+    col = "batch_stats" if flax_leaf in ("mean", "var") else "params"
+    return "%s/%s/%s/%s" % (prefix, col, path, flax_leaf)
+
+
+def classifier_flat_from_modules(head: ClassifyNet,
+                                 features: Optional[FrameFeatureNet] = None
+                                 ) -> dict:
+    """``head`` (and ``features``) → the flat bundle in the JAX package's
+    key layout: conv kernels OIHW → HWIO, dense (out, in) → (in, out), fp32
+    numpy."""
+    flat = {}
+    for prefix, net in (("head", head), ("features", features)):
+        if net is None:
+            continue
+        for name, t in net.state_dict().items():
+            key = _flat_name(prefix, name)
+            if key is None:
+                continue
+            a = t.detach().cpu().to(torch.float32).numpy()
+            if key.endswith("/kernel"):
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            flat[key] = np.ascontiguousarray(a)
+    return flat

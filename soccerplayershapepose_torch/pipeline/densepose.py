@@ -1,19 +1,23 @@
-"""PNG codec of the DensePose IUV payloads and the visualisation files.
+"""DensePose IUV results: the PNG codec, decode, paste and silhouette.
 
-Counterpart of ``encode_png`` and ``decode_png`` in
-``soccerplayershapepose_tpu/pipeline/densepose.py``, copied so the port
-never imports the JAX package: a self-contained 8-bit PNG reader (zlib
-inflate and scanline unfiltering, non-interlaced gray, gray-alpha, RGB and
-RGBA) and a writer (filter 0). ``io.formats.write_png`` writes through
-:func:`encode_png`, so both packages write the same bytes for the same
-image. The rest of the JAX module (IUV decode, paste, colormap) is not
-ported yet.
+Counterpart of ``soccerplayershapepose_tpu/pipeline/densepose.py``, copied
+so the port never imports the JAX package: a self-contained 8-bit PNG
+reader (zlib inflate and scanline unfiltering, non-interlaced gray,
+gray-alpha, RGB and RGBA) and a writer (filter 0); ``io.formats.write_png``
+writes through :func:`encode_png`, so both packages write the same bytes
+for the same image. A DensePose predictor emits one PNG-compressed
+(H, W, 3) IUV byte image per detection box (raw or base64):
+:func:`decode_iuv_result` decodes it, :func:`paste_iuv_into_frame` pastes
+it into a full-frame canvas at its box, and :func:`iuv_to_silhouette`
+takes the person mask from the I (part) channel. Host numpy only.
 """
 
 from __future__ import annotations
 
+import base64
 import struct
 import zlib
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -102,3 +106,35 @@ def encode_png(img: np.ndarray) -> bytes:
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def decode_iuv_result(shape: Optional[Tuple[int, int, int]],
+                      data) -> np.ndarray:
+    """DensePose result payload (PNG bytes, or their base64 string) →
+    (H, W, 3) uint8 IUV; a gray payload is repeated over the 3 channels.
+    ``shape`` (C, H, W), when given, must match the decoded H, W."""
+    if isinstance(data, str):
+        data = base64.b64decode(data)
+    img = decode_png(bytes(data))
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    if shape is not None and img.shape[:2] != tuple(shape[1:3]):
+        raise ValueError("IUV payload is %s, not %s" % (img.shape, shape))
+    return img
+
+
+def paste_iuv_into_frame(frame_hw: Tuple[int, int], iuv_patch: np.ndarray,
+                         box: np.ndarray) -> np.ndarray:
+    """A zero (H, W, 3) uint8 canvas with ``iuv_patch`` pasted at the box's
+    rounded top-left corner, clipped at the frame's right and bottom."""
+    canvas = np.zeros(frame_hw + (3,), np.uint8)
+    x1, y1 = int(round(float(box[0]))), int(round(float(box[1])))
+    h, w = iuv_patch.shape[:2]
+    x2, y2 = min(x1 + w, frame_hw[1]), min(y1 + h, frame_hw[0])
+    canvas[y1:y2, x1:x2] = iuv_patch[:y2 - y1, :x2 - x1]
+    return canvas
+
+
+def iuv_to_silhouette(iuv: np.ndarray) -> np.ndarray:
+    """Binary uint8 silhouette: 1 where the I (part) channel is non-zero."""
+    return (iuv[..., 0] != 0).astype(np.uint8)

@@ -23,16 +23,27 @@ boxes at or above the score threshold, on the host.
 ``<game>/<scene>/<player>/<view>.png`` crop tree and writes each view's
 proxy (``<view>_j2d.xml``, ``<view>_sil.npy``, optionally
 ``<view>_iuv.npy`` and a ``<view>_silhouette.png`` overlay), deleting a
-player whose extraction failed in any view. The JAX module's other stage
-functions (``crop_player_stage``, ``detect_players_stage``, …) are not
-ported yet.
+player whose extraction failed in any view.
+
+The detection stages run a :class:`PlayerDetectorRunner` (or anything with
+its ``hw`` and ``__call__``) over frames read from disk, resized to the
+runner's size in batches and their boxes scaled back, and crop on the host
+with ``pipeline/detection.py``: :func:`crop_player_stage` writes one 512²
+crop of the centre-most player per view of a
+``<game>/<scene>/<player>/<view>.png`` tree; :func:`crop_broad_player_stage`
+writes each ``<game>/<scene>`` frame's ``boxes.xml`` (``<stem>_boxes.xml``
+for the extra frames of a scene that holds several) and a box overlay;
+:func:`crop_broad_player_images_stage` crops every box of a scene's
+``boxes.xml`` into ``<index>/player.png`` (indexes from ``index.xml``, else
+2, 3, …); :func:`detect_players_stage` fuses the two broad stages. All
+files are written with ``io.write_png``, byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +54,9 @@ from soccerplayershapepose_torch.models.detector import (
     PlayerDetector, apply_flip_tta, decode_detections)
 from soccerplayershapepose_torch.models.perception import (
     ProxyNet, decode_iuv, decode_keypoints, decode_silhouette)
+from soccerplayershapepose_torch.pipeline.detection import (
+    crop_broadcast_players, crop_player_view, select_centre_player)
+from soccerplayershapepose_torch.pipeline.preprocess import square_crop_padded
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, default_device)
 
@@ -343,3 +357,240 @@ class PlayerDetectorRunner:
         boxes = dets.boxes.cpu().numpy()
         scores = dets.scores.cpu().numpy()
         return [b[s >= self.score_thresh] for b, s in zip(boxes, scores)]
+
+
+def _scene_frames(frame_root: str) -> List[Tuple[str, str, List[str]]]:
+    """[(game, scene, [frame filenames])] — every image in every scene dir."""
+    scenes = []
+    for game in sorted(os.listdir(frame_root)):
+        gdir = os.path.join(frame_root, game)
+        if not os.path.isdir(gdir):
+            continue
+        for scene in sorted(os.listdir(gdir)):
+            sdir = os.path.join(gdir, scene)
+            if not os.path.isdir(sdir):
+                continue
+            frames = sorted(f for f in os.listdir(sdir)
+                            if f.endswith((".png", ".jpg")))
+            if frames:
+                scenes.append((game, scene, frames))
+    return scenes
+
+
+def _run_detector_batched(runner: PlayerDetectorRunner, jobs: Sequence[str],
+                          batch_size: int):
+    """Detect over a list of image paths; yields (path, orig, boxes) with
+    boxes rescaled back to original-image pixel space."""
+    h, w = runner.hw
+    for start in range(0, len(jobs), batch_size):
+        chunk = jobs[start:start + batch_size]
+        raw = [read_image(path) for path in chunk]
+        frames = np.stack([_resize_frame(r, (h, w)) for r in raw])
+        per_frame = runner(frames)
+        for path, boxes, orig in zip(chunk, per_frame, raw):
+            sy = orig.shape[0] / h
+            sx = orig.shape[1] / w
+            yield path, orig, boxes * np.array([sx, sy, sx, sy])
+
+
+def _draw_boxes(image: np.ndarray, boxes: np.ndarray,
+                color=(255, 0, 0), thickness: int = 2) -> np.ndarray:
+    """Box-rectangle overlay vis (cv2.rectangle role,
+    player_detection.py:183-188)."""
+    vis = image.copy()
+    h, w = vis.shape[:2]
+    for x1, y1, x2, y2 in np.asarray(boxes, np.int64):
+        x1, x2 = np.clip([x1, x2], 0, w - 1)
+        y1, y2 = np.clip([y1, y2], 0, h - 1)
+        for d in range(thickness):
+            vis[max(y1 - d, 0), x1:x2 + 1] = color
+            vis[min(y2 + d, h - 1), x1:x2 + 1] = color
+            vis[y1:y2 + 1, max(x1 - d, 0)] = color
+            vis[y1:y2 + 1, min(x2 + d, w - 1)] = color
+    return vis
+
+
+def crop_player_stage(runner: PlayerDetectorRunner, image_root: str,
+                      out_root: str, batch_size: int = 8,
+                      skip_player_one: bool = True,
+                      skip_if_present_root: Optional[str] = None,
+                      border: int = cfg.PLAYER_CROP_BORDER,
+                      out_size: int = cfg.PLAYER_CROP_SIZE[0],
+                      save_mid: bool = False) -> dict:
+    """Per-view crop driver: the reference ``crop_player``
+    (player_detection.py:83-147).
+
+    Walks ``<root>/<game>/<scene>/<player>/<view>.png``, detects the
+    centre-most player in EVERY view, and writes the bordered green-padded
+    square crop (resized to ``out_size``²) back as
+    ``<out>/<game>/<scene>/<player>/<view>`` — the input layout every
+    downstream stage consumes. ``skip_player_one`` mirrors ``check_index``
+    (player ``'1'`` is the reference/broad slot, :109-111);
+    ``skip_if_present_root`` mirrors ``check_board`` (skip players already in
+    the broadcast tree, :112-114). ``save_mid`` writes a ``*_rect.png`` box
+    overlay next to each crop (:132-135).
+
+    Returns {'written', 'skipped', 'missed': [view paths with no detection]}.
+    """
+    jobs: List[Tuple[io.PlayerTree, str]] = []
+    skipped = 0
+    for node in io.walk_player_tree(image_root):
+        if skip_player_one and node.player == "1":
+            skipped += len(node.views)
+            continue
+        if skip_if_present_root is not None and os.path.exists(
+                os.path.join(skip_if_present_root, node.game, node.scene,
+                             node.player)):
+            skipped += len(node.views)
+            continue
+        for view in node.views:
+            jobs.append((node, view))
+
+    written = 0
+    missed: List[str] = []
+    paths = [os.path.join(n.path, v) for n, v in jobs]
+    for (node, view), (path, orig, boxes) in zip(
+            jobs, _run_detector_batched(runner, paths, batch_size)):
+        crop = crop_player_view(orig, boxes, border=border)
+        if crop is None:
+            missed.append(os.path.join(node.game, node.scene, node.player,
+                                       view))
+            continue
+        if crop.shape[0] != out_size:
+            crop = _resize_frame(crop, (out_size, out_size))
+        player_dst = os.path.join(out_root, node.game, node.scene,
+                                  node.player)
+        os.makedirs(player_dst, exist_ok=True)
+        io.write_png(os.path.join(player_dst, view), crop)
+        if save_mid:
+            centre = select_centre_player(boxes, orig.shape[:2])
+            io.write_png(
+                os.path.join(player_dst,
+                             os.path.splitext(view)[0] + "_rect.png"),
+                _draw_boxes(orig, centre[None]))
+        written += 1
+    return {"written": written, "skipped": skipped, "missed": missed}
+
+
+def crop_broad_player_stage(runner: PlayerDetectorRunner, frame_root: str,
+                            box_root: str, vis_root: Optional[str] = None,
+                            batch_size: int = 4) -> dict:
+    """Broadcast detection driver: the reference ``crop_broad_player``
+    (player_detection.py:152-208).
+
+    For EVERY frame image in each ``<game>/<scene>`` dir: detect all
+    players, write the box list as JSON ``boxes.xml``
+    (player_detection.py:206-207) and a rectangle-overlay vis. The canonical
+    scene holds exactly one ``broad.png`` whose boxes become the scene-level
+    ``boxes.xml``; additional frames get ``<stem>_boxes.xml`` so nothing is
+    silently dropped.
+
+    Returns {'scenes', 'frames', 'boxes'}.
+    """
+    scenes = _scene_frames(frame_root)
+    jobs = [(g, s, f, len(frames) > 1)
+            for g, s, frames in scenes for f in frames]
+
+    n_boxes = 0
+    paths = [os.path.join(frame_root, g, s, f) for g, s, f, _ in jobs]
+    for (game, scene, fname, multi), (path, orig, boxes) in zip(
+            jobs, _run_detector_batched(runner, paths, batch_size)):
+        scene_out = os.path.join(box_root, game, scene)
+        os.makedirs(scene_out, exist_ok=True)
+        stem = os.path.splitext(fname)[0]
+        box_name = (stem + "_boxes.xml") if multi and stem != "broad" \
+            else "boxes.xml"
+        io.write_boxes(os.path.join(scene_out, box_name), boxes)
+        n_boxes += len(boxes)
+        if vis_root is not None:
+            vis_dir = os.path.join(vis_root, game, scene)
+            os.makedirs(vis_dir, exist_ok=True)
+            io.write_png(os.path.join(vis_dir, fname),
+                         _draw_boxes(orig, boxes))
+    return {"scenes": len(scenes), "frames": len(jobs), "boxes": n_boxes}
+
+
+def crop_broad_player_images_stage(box_root: str, frame_root: str,
+                                   image_root: str,
+                                   frame_name: str = "broad.png",
+                                   out_size: int = cfg.PLAYER_CROP_SIZE[0]
+                                   ) -> dict:
+    """Indexed broadcast crop driver: the reference
+    ``crop_broad_player_images`` (player_detection.py:213-250).
+
+    Reads each scene's ``boxes.xml`` + optional ``index.xml`` (player ids
+    assigned in the annotation GUI; defaults to ``2..len(boxes)+1`` — :238),
+    crops every box from the broadcast frame with border 0, and writes
+    ``<image_root>/<game>/<scene>/<index>/player.png``.
+
+    Returns {'scenes', 'crops'}.
+    """
+    n_scenes = n_crops = 0
+    for game, scene, frames in _scene_frames(frame_root):
+        sdir = os.path.join(box_root, game, scene)
+        boxes_path = os.path.join(sdir, "boxes.xml")
+        fname = frame_name if frame_name in frames else frames[0]
+        if not os.path.exists(boxes_path):
+            continue
+        boxes = io.read_boxes(boxes_path)
+        index_path = os.path.join(sdir, "index.xml")
+        indexes = io.read_index(index_path) if os.path.exists(index_path) \
+            else list(range(2, len(boxes) + 2))
+        image = read_image(os.path.join(frame_root, game, scene, fname))
+        n_scenes += 1
+        for box, index in zip(boxes, indexes):
+            crop = square_crop_padded(image, box, border=0,
+                                      out_size=out_size)
+            pdir = os.path.join(image_root, game, scene, str(index))
+            os.makedirs(pdir, exist_ok=True)
+            io.write_png(os.path.join(pdir, "player.png"), crop)
+            n_crops += 1
+    return {"scenes": n_scenes, "crops": n_crops}
+
+
+def detect_players_stage(runner: PlayerDetectorRunner, frame_root: str,
+                         out_root: str, batch_size: int = 4,
+                         broadcast: bool = True) -> dict:
+    """Fused broadcast driver: boxes + indexed crops in one pass.
+
+    Every frame image in each ``<game>/<scene>`` is processed. With
+    ``broadcast=True``: per-frame ``boxes.xml`` (crop_broad_player role) plus
+    one green-padded 512² crop per player
+    (``<out>/<game>/<scene>[/<frame stem>]/<idx>/player.png`` — the frame-stem
+    level appears only when a scene holds more than one frame, so the
+    canonical single-``broad.png`` layout matches crop_broad_player_images
+    exactly). With ``broadcast=False``: one centre-player crop per frame
+    (crop_player single-frame role).
+    """
+    scenes = _scene_frames(frame_root)
+    jobs = [(g, s, f, len(frames) > 1)
+            for g, s, frames in scenes for f in frames]
+    n_boxes = 0
+    paths = [os.path.join(frame_root, g, s, f) for g, s, f, _ in jobs]
+    for (game, scene, fname, multi), (path, orig, boxes) in zip(
+            jobs, _run_detector_batched(runner, paths, batch_size)):
+        scene_out = os.path.join(out_root, game, scene)
+        os.makedirs(scene_out, exist_ok=True)
+        stem = os.path.splitext(fname)[0]
+        box_name = (stem + "_boxes.xml") if multi and stem != "broad" \
+            else "boxes.xml"
+        io.write_boxes(os.path.join(scene_out, box_name), boxes)
+        n_boxes += len(boxes)
+        if broadcast:
+            base = os.path.join(scene_out, stem) if multi else scene_out
+            for i, crop in enumerate(crop_broadcast_players(orig, boxes)):
+                pdir = os.path.join(base, str(i + 1))
+                os.makedirs(pdir, exist_ok=True)
+                io.write_png(os.path.join(pdir, "player.png"), crop)
+        else:
+            crop = crop_player_view(orig, boxes)
+            if crop is not None:
+                name = (stem + "_player.png") if multi else "player.png"
+                io.write_png(os.path.join(scene_out, name), crop)
+    return {"scenes": len(scenes), "boxes": n_boxes}
+
+
+def _resize_frame(image: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    from PIL import Image
+    return np.asarray(Image.fromarray(image).resize(
+        (hw[1], hw[0]), Image.BILINEAR), np.uint8)

@@ -1,6 +1,12 @@
 """The port's command line (``python -m soccerplayershapepose_torch``)
 against the JAX package's and its own in-process stages.
 
+The front end's subcommands (``harvest-frames``, ``crop-broad-player``,
+``detect-players`` and ``crop-player``) exit non-zero without
+``--device cpu`` where there is no card, and write nothing;
+tests/test_torch_cli_front.py holds their output against the JAX
+package's CLI.
+
 Each run is a subprocess whose imports refuse ``jax``, ``flax``,
 ``optax`` and ``soccerplayershapepose_tpu`` (the guard of
 tests/test_torch_package.py): ``calc-metrics`` prints the JSON of JAX's
@@ -111,7 +117,7 @@ def test_cli_usage_error():
     out = run_cli("single-view")
     assert out.returncode != 0
     assert "--image-root" in out.stderr
-    out = run_cli("detect-players")        # not ported yet
+    out = run_cli("train")                 # not ported yet
     assert out.returncode != 0 and "invalid choice" in out.stderr
 
 
@@ -161,4 +167,34 @@ def test_cli_refuses_a_checkpoint_and_a_missing_card(tmp_path, tiny_tree):
         out = run_cli(*argv, cuda_visible="")
         assert out.returncode != 0 and "CUDA" in out.stderr
         assert '"views"' not in out.stdout and '"written"' not in out.stdout
+    assert not (tmp_path / "out").exists()
+
+
+
+def front_argv(name, root, out):
+    """The argv of a detection subcommand over the trees under ``root``
+    (tests/test_torch_cli_front.py:front_inputs)."""
+    det = ["--height", "128", "--width", "192", "--score-thresh", "1e-3"]
+    return {
+        "crop-broad-player": ["crop-broad-player", "--frame-root",
+                              str(root / "frames"), "--box-root",
+                              str(out / "boxes"), "--player-root",
+                              str(out / "players"), *det],
+        "detect-players": ["detect-players", "--frame-root",
+                           str(root / "frames"), "--out-root",
+                           str(out / "det"), *det],
+        "crop-player": ["crop-player", "--image-root", str(root / "views"),
+                        "--out-root", str(out / "crops"), "--save-mid",
+                        *det]}[name]
+
+@pytest.mark.parametrize("name", ["harvest-frames", "crop-broad-player",
+                                  "detect-players", "crop-player"])
+def test_cli_front_end_refuses_a_missing_card(tmp_path, name):
+    argv = (["harvest-frames", "--video", str(tmp_path / "none.avi"),
+             "--out-root", str(tmp_path / "out")]
+            if name == "harvest-frames"
+            else front_argv(name, tmp_path, tmp_path / "out"))
+    out = run_cli(*argv, cuda_visible="")
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert not out.stdout.strip().startswith("{")
     assert not (tmp_path / "out").exists()
