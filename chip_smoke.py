@@ -47,6 +47,19 @@ call and drives the port's two paths on the card:
   command line's multi-view and broadcast-view fits
   (``python -m soccerplayershapepose_torch``) as subprocesses on a
   1-scene tree;
+* texture extraction and the attribute renders: the texture probe
+  (``texture/quality.py``, the counterpart of ``scripts/texture_probe.py``:
+  4 x 16 RGB crops at 256^2, ProxyNet ``weights/proxynet_256_f16.npz``
+  with its IUV head, atlases from the ground-truth and the predicted IUV
+  at the 64^2 grid), held to ``weights/texture_quality.json``; the
+  part-segmentation and textured renders of 2 crops at 512^2 (a player
+  and its occluder each; the texture is the probe's fused predicted
+  atlas) through K3, held to the plain route; the committed regressor
+  expanded to 21 and 20 input channels, its 512^2 evaluation held to the
+  18-channel one, and the e2e evaluation with ProxyNet's IUV; the
+  relation module v0 and v1 (``weights/relation_v{0,1}.npz``) on 64 x 8
+  synthetic scenes of 6 players, held to ``weights/relation_v{0,1}
+  _eval.json`` and, on one batch, to the CPU;
 * the one-clip rehearsal (``scripts/e2e_rehearsal.py``, held to
   ``weights/e2e_r05/summary.json``): a synthetic mp4v clip of 16 wide
   256 x 448 frames with 8 players (K3 at 448^2) and 6 RGB close-ups (K3
@@ -293,6 +306,36 @@ K3_CLIP_PLAIN_B = 2
 # crop_player_stage's detector size (the CLI's default).
 CROP_PLAYER_HW = (256, 256)
 
+# Texture, attribute renders, IUV proxies and relation.
+TEX_RECORD = os.path.join("weights", "texture_quality.json")
+TEX_SEED = 77_000_000     # the record's seed (scripts/texture_probe.py)
+TEX_BATCHES = 4
+TEX_BATCH = 16
+TEX_WH = 256
+TEX_METRICS = ("gt_roundtrip_psnr_db", "pred_roundtrip_psnr_db",
+               "pred_vs_gt_l1", "pred_vs_gt_psnr_db")
+ATTR_SEED = 90_000_000
+ATTR_B = 2
+ATTR_WH = 512
+ATTR_PARTS = 25           # DensePose ids: background + 24 parts
+ATTR_NORMAL_RES = 512
+ATTR_TIE_W = 1e-5         # top-two one-hot weights this close: a near-tie
+ATTR_IMG_TOL = 1e-5
+IUV_REL = 1e-4            # 21-channel expansion vs the 18-channel metrics
+REL_WEIGHTS = {v: os.path.join("weights", "relation_v%d.npz" % v)
+               for v in (0, 1)}
+REL_RECORDS = {v: os.path.join("weights", "relation_v%d_eval.json" % v)
+               for v in (0, 1)}
+REL_SEED = 50_000_000
+# The records ran 8 batches; a mean of 8 batches moves by ±1.2° of angle
+# (σ 3.5° a batch), and the port's first 8 lie 2σ above the mean, the
+# records' 0.5σ below it: 64 batches, where the two streams' means agree
+# within 0.3° (scripts/relation_stream_spread.py).
+REL_BATCHES = 64
+REL_B = 8
+REL_PLAYERS = 6
+REL_TOL = 1e-5            # card vs CPU, fp32 with TF32 off
+
 _T0 = time.time()
 # What a run started and must stop or remove if the budget cuts it off:
 # the command-line subprocesses and the trees' directory.
@@ -524,7 +567,8 @@ def main() -> int:
     for path in (WEIGHTS, RECORD, E2E_RECORD, PN_WEIGHTS[256],
                  PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD,
                  *FIT3D_RECORDS.values(), MINT_RECORD, E2E_CLIP_RECORD,
-                 CLS_WEIGHTS, DET_META):
+                 CLS_WEIGHTS, DET_META, TEX_RECORD, *REL_WEIGHTS.values(),
+                 *REL_RECORDS.values()):
         if not os.path.isfile(os.path.join(root, path)):
             print("chip_smoke: %s is missing; the evaluations need the "
                   "committed weights and records" % path, file=sys.stderr)
@@ -2836,6 +2880,250 @@ def main() -> int:
              record={k: pn_record[k] for k in PN_METRICS},
              record_rel_tol=RECORD_REL, nvidia_smi=smi)
 
+    # == Texture, the attribute renders, the IUV proxies, relation =========
+    from soccerplayershapepose_torch.convert import load_relation_weights
+    from soccerplayershapepose_torch.texture import quality as tex_q
+    from soccerplayershapepose_torch.texture import uv as tex_uv
+    from soccerplayershapepose_torch.train import relation as rel_mod
+    with open(os.path.join(root, TEX_RECORD)) as f:
+        tex_record = json.load(f)
+
+    # -- texture_quality: the texture probe, GT vs predicted IUV atlases ----
+    t = time.time()
+    tex_s = {}
+    res_tex, tex_wall, _, k3_launches_tex = counted(
+        lambda: tex_q.texture_quality(
+            pn_nets[TEX_WH], assets, n_batches=TEX_BATCHES, batch=TEX_BATCH,
+            wh=TEX_WH, seed=TEX_SEED, stage_times=tex_s, device=dev))
+    check(k3_launches_tex == 2 * TEX_BATCHES,
+          "K3 launched %d times in %d texture batches"
+          % (k3_launches_tex, TEX_BATCHES))
+    atlas, atlas_mask = res_tex.pop("pred_atlas"), res_tex.pop(
+        "pred_atlas_mask")
+    check(res_tex["n_crops"] == TEX_BATCHES * TEX_BATCH
+          and all(np.isfinite(v) for v in res_tex.values()),
+          "texture probe: %s" % res_tex)
+    for k in TEX_METRICS:
+        check(abs(res_tex[k] - tex_record[k]) <= RECORD_REL * tex_record[k],
+              "texture %s %.4f is not within %d%% of the record %.4f"
+              % (k, res_tex[k], RECORD_REL * 100, tex_record[k]))
+    # The predicted atlas of the probe's first batch, fused over its crops,
+    # is the texture of the textured render below.
+    sheet = tex_uv.concat_atlas(atlas)
+    check(torch.equal(tex_uv.split_atlas(sheet), atlas),
+          "split_atlas does not invert concat_atlas")
+    normal_map = tex_uv.atlas_to_normal(tex_uv.split_atlas(sheet),
+                                        normal_res=ATTR_NORMAL_RES)
+    emit("texture_quality", t, n_crops=res_tex["n_crops"], wh=TEX_WH,
+         grid=res_tex["grid"], weights=PN_WEIGHTS[TEX_WH],
+         wall_s=round(tex_wall, 4), k3_launches=k3_launches_tex,
+         stage_s_synchronised={k: round(v, 4) for k, v in tex_s.items()},
+         metrics={k: v for k, v in res_tex.items() if isinstance(v, float)},
+         record={k: tex_record[k] for k in TEX_METRICS + (
+             "coverage_gt", "coverage_pred", "coverage_inter")},
+         record_rel_tol=RECORD_REL,
+         fused_atlas_coverage=float(atlas_mask.mean()), nvidia_smi=smi)
+
+    # -- attr_render: part segmentation and textured render through K3 -------
+    # B = 2 crops at 512^2, each a player and its occluder (both present),
+    # 2 x 13,776 faces. Part labels are DensePose ids (vertex part + 1, 25
+    # classes); the texture is the fused predicted atlas's normal map.
+    t = time.time()
+    ad = synth.sample_crop_draws(torch.Generator().manual_seed(ATTR_SEED),
+                                 ATTR_B)
+    ad = ad._replace(occluder=ad.occluder._replace(
+        present=torch.ones_like(ad.occluder.present)))
+    ascn = synth.crop_scene(assets, synth.draws_to(ad, dev), ATTR_WH)
+    v2d, vz, afaces = ascn["verts2d"], ascn["verts_z"], ascn["faces"]
+    n_bodies = v2d.shape[1] // assets.v_template.shape[0]
+    parts = (synth.vertex_parts(assets) + 1).repeat(n_bodies)
+    vuv = synth.vertex_uv(assets).repeat(n_bodies, 1)
+
+    def attr_renders():
+        return (attribute.render_part_segmentation(
+                    v2d, vz, parts, afaces, ATTR_WH, num_parts=ATTR_PARTS),
+                attribute.render_textured(v2d, vz, vuv, afaces, normal_map,
+                                          ATTR_WH))
+
+    attr_renders()
+    (labels_k, (img_k, mask_k)), attr_wall, _, k3_launches_attr = counted(
+        attr_renders)
+    check(k3_launches_attr == 2, "the two renders launched K3 %d times"
+          % k3_launches_attr)
+    # One plain call for both renders: one-hot parts, UV and the depth.
+    onehot = torch.nn.functional.one_hot(parts.long(), ATTR_PARTS).float()
+    a_in = torch.cat([onehot, vuv], -1)[None].expand(ATTR_B, -1, -1)
+    a_in = torch.cat([a_in, vz[..., None]], -1)
+    a_k, m_k = attribute.rasterize_attributes(v2d, vz, a_in, afaces, ATTR_WH)
+    torch.cuda.synchronize()
+    t_p = time.time()
+    a_p, m_p = attribute.rasterize_attributes_plain(v2d, vz, a_in, afaces,
+                                                    ATTR_WH)
+    torch.cuda.synchronize()
+    attr_plain_s = time.time() - t_p
+    check(torch.equal(mask_k, m_p) and torch.equal(m_k, m_p)
+          and torch.equal(labels_k > 0, m_p),
+          "the renders' masks differ from the plain route's")
+    labels_p = torch.where(m_p, torch.argmax(a_p[..., :ATTR_PARTS], -1), 0)
+    img_p = tex_uv.sample_uv_texture(
+        normal_map, a_p[..., ATTR_PARTS:ATTR_PARTS + 2].reshape(-1, 2)
+    ).reshape(img_k.shape) * m_p[..., None]
+    # Near-ties: the top two one-hot weights within ATTR_TIE_W on either
+    # route, or another face at a depth within K3_TIE_ULPS.
+    weight_tie = torch.zeros_like(m_p)
+    for a in (a_k, a_p):
+        top2 = torch.topk(a[..., :ATTR_PARTS], 2, dim=-1).values
+        weight_tie |= (top2[..., 0] - top2[..., 1]) <= ATTR_TIE_W
+    z_k, z_p = a_k[..., -1], a_p[..., -1]
+    other_face = (a_k[..., :-1] - a_p[..., :-1]).abs().amax(-1) > K3_ATTR_TOL
+    depth_tie = other_face & m_p & ((z_k - z_p).abs() <= K3_TIE_ULPS * ulp(
+        torch.maximum(z_k.abs(), z_p.abs())))
+    labels_apart = labels_k != labels_p
+    check(bool((~labels_apart | weight_tie | depth_tie).all()),
+          "part labels differ from the plain route at %d pixels that are no "
+          "near-tie" % int((labels_apart & ~weight_tie & ~depth_tie).sum()))
+    check(not bool((other_face & m_p & ~depth_tie).any()),
+          "the routes take faces of different depth at %d pixels"
+          % int((other_face & m_p & ~depth_tie).sum()))
+    # The image off the depth ties: within ATTR_IMG_TOL, except where the
+    # two routes' UV gap (each within K3_ATTR_TOL) times the normal map's
+    # steepest texel step and size bounds a larger gap.
+    uv_gap = (a_k[..., ATTR_PARTS:ATTR_PARTS + 2]
+              - a_p[..., ATTR_PARTS:ATTR_PARTS + 2]).abs().amax(-1)
+    img_gap = (img_k - img_p).abs().amax(-1)
+    step = max(float(normal_map.diff(dim=0).abs().max()),
+               float(normal_map.diff(dim=1).abs().max()))
+    slope = (normal_map.shape[0] + normal_map.shape[1] - 2) * step
+    off = m_p & ~depth_tie
+    steep = off & (img_gap > ATTR_IMG_TOL)
+    check(bool((uv_gap[off] <= K3_ATTR_TOL).all()),
+          "the routes' UVs differ by %.3g on the same face"
+          % float(uv_gap[off].max()))
+    check(bool((img_gap[steep] <= ATTR_IMG_TOL + slope * uv_gap[steep]).all()),
+          "the textured image differs beyond its UV gap at %d pixels"
+          % int((steep & (img_gap > ATTR_IMG_TOL + slope * uv_gap)).sum()))
+    check(bool(torch.isfinite(img_k).all()) and labels_k.max() < ATTR_PARTS,
+          "the renders are not finite labels and colours")
+    k3_attr = dict(k3_case(ascn, ATTR_B, ATTR_WH, 1.0), path="attr_render")
+    emit("attr_render", t, b=ATTR_B, wh=ATTR_WH,
+         faces=int(afaces.shape[0]), parts=ATTR_PARTS,
+         normal_res=ATTR_NORMAL_RES, wall_ms=round(attr_wall * 1e3, 3),
+         k3_launches=k3_launches_attr, covered_px=int(m_p.sum()),
+         labels_apart=int(labels_apart.sum()),
+         weight_tie_px=int((labels_apart & weight_tie).sum()),
+         depth_tie_px=int(depth_tie.sum()),
+         uv_max_abs=float(uv_gap[off].max()),
+         img_max_abs_off_ties=float(img_gap[off].max()),
+         img_tol=ATTR_IMG_TOL, steep_texel_px=int(steep.sum()),
+         texture_slope=slope, plain_route_s=round(attr_plain_s, 4),
+         k3_ms=k3_attr["ms"], k3_bound_ms=k3_attr["bound_ms"],
+         k3_bound_by=k3_attr["bound_by"],
+         k3_pairs_evaluated=k3_attr["pairs_evaluated"],
+         k3_padded_box_pairs=k3_attr["padded_box_pairs"],
+         k3_support_pairs=k3_attr["support_pairs"],
+         k3_plain_ms=k3_attr["plain_ms"], nvidia_smi=smi)
+    k3.append(k3_attr)
+
+    # -- iuv_eval: the 20- and 21-channel proxies from the expanded weights --
+    t = time.time()
+    iuv_dir = tempfile.mkdtemp(prefix="_smoke_iuv_", dir=root)
+    _WORK_DIRS.append(iuv_dir)
+    try:
+        iuv_models = {}
+        for c in (20, 21):
+            path = os.path.join(iuv_dir, "regressor_%dch.npz" % c)
+            straps.expand_regressor_channels(os.path.join(root, WEIGHTS),
+                                             path, c)
+            iuv_models[c] = load_regressor_weights(path, dev)
+    finally:
+        shutil.rmtree(iuv_dir, ignore_errors=True)
+    check(all(iuv_models[c].in_channels == c for c in (20, 21)),
+          "the expanded regressors' input widths")
+
+    # synth_eval's ``res`` is the 18-channel regressor on the same draws.
+    res21, iuv21_s, _, k3_launches_iuv = counted(
+        lambda: straps.evaluate_regressor(
+            iuv_models[21], assets, n_batches=EVAL_BATCHES, batch=EVAL_BATCH,
+            wh=EVAL_WH, seed=EVAL_SEED, device=dev))
+    check(k3_launches_iuv == 2 * EVAL_BATCHES,
+          "K3 launched %d times in the 21-channel evaluation"
+          % k3_launches_iuv)
+    iuv_rel = {k: abs(res21[k] - res[k]) / abs(res[k]) for k in metrics}
+    check(max(iuv_rel.values()) <= IUV_REL,
+          "the 21-channel expansion disagrees with the 18-channel regressor: "
+          "%s" % iuv_rel)
+    e2e_iuv, k3_launches_e2e_iuv = {}, {}
+    for c in (20, 21):
+        r, s_, _, n3 = counted(lambda: straps.evaluate_regressor_e2e(
+            iuv_models[c], ProxyExtractor(pn_nets[E2E_WH], wh=E2E_WH,
+                                          device=dev), assets,
+            n_batches=E2E_BATCHES, batch=E2E_BATCH, wh=E2E_WH,
+            seed=EVAL_SEED, device=dev))
+        check(n3 == 2 * E2E_BATCHES, "K3 launched %d times in the %d-channel "
+              "e2e evaluation" % (n3, c))
+        check(r["n_images"] > 0 and all(np.isfinite(r[k]) for k in metrics),
+              "%d-channel e2e metrics missing or not finite: %s" % (c, r))
+        e2e_iuv[c] = dict({k: r[k] for k in metrics}, wall_s=round(s_, 4),
+                          n_images=r["n_images"],
+                          extraction_failures=r["extraction_failures"])
+        k3_launches_e2e_iuv[c] = n3
+    emit("iuv_eval", t, wh=EVAL_WH, n_images=res21["n_images"],
+         wall_s_21ch=round(iuv21_s, 4), k3_launches=k3_launches_iuv,
+         rel_tol=IUV_REL, rel_21_vs_18=iuv_rel,
+         metrics_21ch={k: res21[k] for k in metrics},
+         metrics_18ch={k: res[k] for k in metrics},
+         e2e_wh=E2E_WH, e2e=e2e_iuv, e2e_k3_launches=k3_launches_e2e_iuv,
+         nvidia_smi=smi)
+
+    # -- relation_eval: v0 and v1 with their committed weights ---------------
+    t = time.time()
+    rel_rows = {}
+    for v in (0, 1):
+        with open(os.path.join(root, REL_RECORDS[v])) as f:
+            rel_record = json.load(f)
+        rel_path = os.path.join(root, REL_WEIGHTS[v])
+        rel_gpu = load_relation_weights(rel_path, dev)
+        res_rel, rel_s, _, _ = counted(lambda: rel_mod.evaluate_relation(
+            rel_gpu, assets, n_batches=REL_BATCHES, b=REL_B,
+            n_players=REL_PLAYERS, seed=REL_SEED, device=dev))
+        for k in ("mse", "angle", "mpjpe"):
+            k_in, k_out = [k2 for k2 in res_rel if k2.startswith(k + "_")]
+            check(np.isfinite(res_rel[k_out])
+                  and res_rel[k_out] < res_rel[k_in],
+                  "relation v%d %s: out %.4g is not below in %.4g"
+                  % (v, k, res_rel[k_out], res_rel[k_in]))
+            check(abs(res_rel[k_out] - rel_record[k_out])
+                  <= RECORD_REL * rel_record[k_out],
+                  "relation v%d %s %.4g is not within %d%% of the record "
+                  "%.4g" % (v, k_out, res_rel[k_out], RECORD_REL * 100,
+                            rel_record[k_out]))
+        # The card against the CPU on one identical batch.
+        draws = rel_mod.sample_relation_draws(
+            torch.Generator().manual_seed(REL_SEED), REL_B, REL_PLAYERS)
+        batch = rel_mod.synth_relation_batch(draws)
+        batch_gpu = rel_mod.synth_relation_batch(draws, device=dev)
+        rel_cpu = load_relation_weights(rel_path, "cpu")
+        with torch.no_grad():
+            ref = rel_cpu(batch["rotmats_noisy"], batch["boxes"],
+                          batch["mask"])
+            got = rel_gpu(batch["rotmats_noisy"].to(dev),
+                          batch["boxes"].to(dev), batch["mask"].to(dev))
+        rel_err = float((got.cpu() - ref).abs().max())
+        check(rel_err <= REL_TOL, "relation v%d on the card disagrees with "
+              "the CPU by %.3g" % (v, rel_err))
+        rel_rows["v%d" % v] = {
+            "metrics": res_rel, "wall_s": round(rel_s, 4),
+            "scenes_per_s": round(res_rel["n_scenes"] / rel_s, 2),
+            "record": {k: rel_record[k] for k in res_rel if k in rel_record},
+            "card_vs_cpu_max_abs": rel_err,
+            "batch_card_vs_cpu_max_abs": float(
+                (batch_gpu["rotmats_noisy"].cpu()
+                 - batch["rotmats_noisy"]).abs().max())}
+    emit("relation_eval", t, batches=REL_BATCHES, scenes=REL_B,
+         players=REL_PLAYERS, seed=REL_SEED, tol=REL_TOL,
+         tf32=torch.backends.cuda.matmul.allow_tf32,
+         record_rel_tol=RECORD_REL, variants=rel_rows, nvidia_smi=smi)
+
     kernels = []
     # K1 and K2 run once per fit iteration (K1 alone in a forward-only
     # evaluation) on nine paths: the 22-player fit, the three GT-3D
@@ -2879,9 +3167,12 @@ def main() -> int:
     # single-view GT-3D evaluation's crops (512², 128²), the scene
     # renders (one 512² pass per view, or per track batch) of the
     # multi-view and track evaluations, the broadcast-view fit, the
-    # stage tree and the create-proxy scene (with colour channels), and
-    # the one clip's synthesis (448² per pair of wide frames, 256² and
-    # 64² per pair of close-ups). Its
+    # stage tree and the create-proxy scene (with colour channels), the
+    # one clip's synthesis (448² per pair of wide frames, 256² and 64² per
+    # pair of close-ups), the texture probe's crops (256², 64²), the
+    # part-segmentation and textured renders (one 512² pass each for a
+    # player and its occluder, B = 2) and the 20- and 21-channel
+    # evaluations (512² and 128², or 256² and 64²). Its
     # times are the mean per launch over the pass shapes, its pairs the
     # sum over them; "shapes" gives each (the plain version's time on
     # plain_b of the b images), "launches_by_path" each path's count.
@@ -2891,6 +3182,11 @@ def main() -> int:
                   **k3_fit_launches}
     k3_by_path.update({"proxynet_eval_%d" % wh: n
                        for wh, n in k3_launches_pn.items()})
+    k3_by_path.update({"texture_quality": k3_launches_tex,
+                       "attr_render": k3_launches_attr,
+                       "iuv_eval_21ch": k3_launches_iuv})
+    k3_by_path.update({"iuv_e2e_%dch" % c: n
+                       for c, n in k3_launches_e2e_iuv.items()})
     kernels.append({
         "name": "zbuffer_bary", "route": "cuda",
         "source": "soccerplayershapepose_torch/csrc/zbuffer.cu",

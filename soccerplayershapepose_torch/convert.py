@@ -8,9 +8,11 @@ compute on the same numbers. The committed flax regressor weights
 them) load into :class:`SingleInputRegressor`, the committed ProxyNet
 weights (``weights/proxynet_*_f16.npz``) into :class:`ProxyNet`, the
 detector's (``weights/detector_256x448_f16.npz``) into
-:class:`PlayerDetector` and the frame classifier's
+:class:`PlayerDetector`, the frame classifier's
 (``weights/frame_classifier.npz``) into :class:`ClassifyNet` and
-:class:`FrameFeatureNet` at run time. Nothing is written to disk but a
+:class:`FrameFeatureNet`, and the relation modules'
+(``weights/relation_v{0,1}.npz``) into :class:`PoseRelationModule` at run
+time. Nothing is written to disk but a
 classifier bundle, in the JAX package's layout, when one is saved.
 """
 
@@ -30,6 +32,7 @@ from soccerplayershapepose_torch.models.classifier import ClassifyNet
 from soccerplayershapepose_torch.models.detector import PlayerDetector
 from soccerplayershapepose_torch.models.perception import ProxyNet
 from soccerplayershapepose_torch.models.regressor import SingleInputRegressor
+from soccerplayershapepose_torch.models.relation import PoseRelationModule
 from soccerplayershapepose_torch.pipeline.classification import (
     FrameFeatureNet)
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
@@ -337,3 +340,40 @@ def classifier_flat_from_modules(head: ClassifyNet,
                 a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
             flat[key] = np.ascontiguousarray(a)
     return flat
+
+
+def relation_state_dict_from_flat(flat: dict) -> dict:
+    """Flat flax PoseRelationModule params (``params/WQ/kernel`` (in, H,
+    dk), ``params/WG/kernel`` (G, H), ``params/lift``, ``params/proj_back``)
+    → its state dict: each kernel reshaped to (in, out) and transposed."""
+    sd = {}
+    for key, arr in flat.items():
+        top, name, leaf = key.split("/")
+        if top != "params":
+            raise ValueError("unexpected relation variable " + key)
+        a = np.asarray(arr, np.float32)
+        if leaf == "kernel":
+            sd[name + ".weight"] = torch.from_numpy(
+                np.ascontiguousarray(a.reshape(a.shape[0], -1).T))
+        else:
+            sd[name + ".bias"] = torch.from_numpy(a.reshape(-1).copy())
+    return sd
+
+
+def load_relation_weights(path: str, device: DeviceLike = None
+                          ) -> PoseRelationModule:
+    """Read a committed flax relation npz → the module on ``device`` (None:
+    the CUDA card). v0 or v1 is read from the weights: a ``lift`` layer
+    means v1; the units and their width come from ``WQ``'s kernel, the
+    embedding width from ``WG``'s."""
+    dev = default_device(device)
+    flat = _read_flat(path)
+    _, h, dk = flat["params/WQ/kernel"].shape
+    lift = flat.get("params/lift/kernel")
+    model = PoseRelationModule(
+        n_relations=int(h), key_dim=int(dk),
+        geo_dim=int(flat["params/WG/kernel"].shape[0]),
+        lift_dim=None if lift is None else int(lift.shape[1]))
+    _load_strict(model, relation_state_dict_from_flat(flat), path,
+                 "the relation module")
+    return model.to(dev).eval()

@@ -6,4 +6,5 @@ from soccerplayershapepose_torch.ops.camera import (  # noqa: F401
     orthographic_project, perspective_project, undo_keypoint_normalisation,
     weak_perspective_to_translation)
 from soccerplayershapepose_torch.ops.segmentation import (  # noqa: F401
+    densepose_to_6part_lsp, joints2d_l2_error, multiclass_to_binary,
     silhouette_confusion_metrics)

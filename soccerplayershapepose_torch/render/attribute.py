@@ -7,14 +7,20 @@ tensors' device, as the JAX function does on its platform: CUDA tensors go
 through the z-buffer kernel K3 (``render/zbuffer.py``), CPU tensors through
 :func:`rasterize_attributes_plain`, the counterpart of the JAX package's
 ``rasterize_attributes_xla`` oracle. Not differentiable.
+
+Two renders sit on it: :func:`render_part_segmentation` (one-hot part
+attributes, then the argmax) and :func:`render_textured` (per-vertex UVs,
+then a bilinear lookup in the normal UV map).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
 from soccerplayershapepose_torch.render.zbuffer import (
     rasterize_attributes_fast)
+from soccerplayershapepose_torch.texture.uv import sample_uv_texture
 
 # Faces per step of the plain version, as the JAX oracle's scan takes them.
 _FACES_PER_CHUNK = 86
@@ -98,3 +104,33 @@ def rasterize_attributes_plain(verts2d: torch.Tensor, verts_z: torch.Tensor,
         best_attr = torch.where(better[..., None], interp, best_attr)
     mask = torch.isfinite(best_z).reshape(b, img_wh, img_wh)
     return best_attr.reshape(b, img_wh, img_wh, a), mask
+
+
+def render_part_segmentation(verts2d: torch.Tensor, verts_z: torch.Tensor,
+                             vertex_parts: torch.Tensor, faces: torch.Tensor,
+                             img_wh: int, num_parts: int = 7) -> torch.Tensor:
+    """(B, wh, wh) int64 part labels, background 0: each pixel's
+    interpolated one-hot of ``vertex_parts`` (V,) in 0..num_parts-1, then
+    the argmax (the first maximum on a tie)."""
+    b = verts2d.shape[0]
+    onehot = F.one_hot(vertex_parts.to(torch.long), num_parts).to(
+        torch.float32)
+    attrs = onehot[None].expand(b, -1, -1)
+    out, mask = rasterize_attributes(verts2d, verts_z, attrs, faces, img_wh)
+    labels = torch.argmax(out, dim=-1)
+    return torch.where(mask, labels, 0)
+
+
+def render_textured(verts2d: torch.Tensor, verts_z: torch.Tensor,
+                    vertex_uv: torch.Tensor, faces: torch.Tensor,
+                    texture: torch.Tensor, img_wh: int):
+    """UV-textured render: the per-vertex UVs ``vertex_uv`` (V, 2) in
+    [0, 1] interpolated per pixel, then the (H, W, 3) normal map
+    ``texture`` sampled there. Returns ``(image (B, wh, wh, 3), mask
+    (B, wh, wh) bool)``; the image is 0 off the mask."""
+    b = verts2d.shape[0]
+    attrs = vertex_uv[None].expand(b, -1, -1)
+    uv, mask = rasterize_attributes(verts2d, verts_z, attrs, faces, img_wh)
+    img = sample_uv_texture(texture, uv.reshape(-1, 2)).reshape(
+        b, img_wh, img_wh, -1)
+    return img * mask[..., None], mask

@@ -11,6 +11,7 @@ chunk under ``torch.utils.checkpoint`` so the backward recomputes it and
 autograd keeps only the running sum per chunk. It is the oracle of the CUDA
 kernels in ``render/band_raster.py`` and the path every CPU tensor takes.
 :func:`render_silhouette` sends CUDA tensors to the kernels.
+:func:`hard_silhouette` is the binary coverage the metrics read.
 """
 
 from __future__ import annotations
@@ -143,6 +144,37 @@ def soft_silhouette(verts2d: torch.Tensor,
         else:
             log_miss = step(log_miss, verts2d, fidx, valid[c])
     return (1.0 - torch.exp(log_miss)).reshape(b, img_wh, img_wh)
+
+
+@torch.no_grad()
+def hard_silhouette(verts2d: torch.Tensor, faces: torch.Tensor,
+                    img_wh: int, faces_per_chunk: int = 86) -> torch.Tensor:
+    """(B, img_wh, img_wh) binary coverage: 1 where a pixel centre lies
+    inside some face of ``faces`` (F, 3), edges included, either winding;
+    the metric-side counterpart of :func:`soft_silhouette`, chunk by chunk
+    over the faces. No gradient."""
+    b = verts2d.shape[0]
+    faces = faces.to(torch.long)
+    px, py = pixel_grid(img_wh, verts2d.device)
+    covered = torch.zeros((b, img_wh * img_wh), dtype=torch.bool,
+                          device=verts2d.device)
+
+    def cross(x0, y0, x1, y1):
+        return ((x1 - x0)[..., None] * (py - y0[..., None])
+                - (y1 - y0)[..., None] * (px - x0[..., None]))
+
+    for s in range(0, faces.shape[0], faces_per_chunk):
+        tri = verts2d[:, faces[s:s + faces_per_chunk]]      # (B, c, 3, 2)
+        ax, ay = tri[..., 0, 0], tri[..., 0, 1]
+        bx, by = tri[..., 1, 0], tri[..., 1, 1]
+        cx, cy = tri[..., 2, 0], tri[..., 2, 1]
+        c0 = cross(ax, ay, bx, by)
+        c1 = cross(bx, by, cx, cy)
+        c2 = cross(cx, cy, ax, ay)
+        inside = (((c0 >= 0) & (c1 >= 0) & (c2 >= 0))
+                  | ((c0 <= 0) & (c1 <= 0) & (c2 <= 0)))
+        covered |= inside.any(dim=1)
+    return covered.reshape(b, img_wh, img_wh).to(torch.float32)
 
 
 def render_silhouette(vertices: torch.Tensor,

@@ -3,16 +3,21 @@
 Counterpart of the evaluation half of
 ``soccerplayershapepose_tpu/train/straps.py``: synthetic crops from random
 SMPL bodies (``train/synth.py``, two z-buffer passes through K3 on the
-card), optionally corrupted like a detector's output, the 18-channel proxy,
-the regressor, and the reference's metric family: PVE / PVE-SC / PVE-PA,
+card), optionally corrupted like a detector's output, the proxy (18
+channels [sil, heatmaps], or with the ground-truth IUV image of
+:func:`gt_iuv_image` 21 [sil, heatmaps, IUV] or 20 [heatmaps, IUV]; the
+regressor's input width chooses), the regressor, and the reference's
+metric family: PVE / PVE-SC / PVE-PA,
 PVE-T / PVE-T-SC (T-pose) and MPJPE / MPJPE-SC / MPJPE-PA in mm over the
 COCO joints, and the 2-D joint error in 512² proxy pixels.
 
 :func:`evaluate_regressor_e2e` is the deployment-condition evaluation:
 domain-randomised RGB crops with occluders go through ProxyNet and the
 extractor (``pipeline/extract.py``), and the extracted silhouette and
-keypoints, not the ground truth, build the regressor's proxy; crops whose
-extraction fails are left out and counted.
+keypoints (and its IUV for a 20- or 21-channel regressor), not the ground
+truth, build the regressor's proxy; crops whose extraction fails are left
+out and counted. :func:`expand_regressor_channels` turns the committed
+18-channel weights into a 20- or 21-channel warm start.
 
 :func:`evaluate_fit_3d` is the GT-3D benchmark of the single-view fit: the
 regressor's init and the fit from it (:func:`synth_fit_batch`'s corrupted
@@ -30,6 +35,7 @@ from typing import Callable, Iterable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from soccerplayershapepose_torch import config as cfg
 from soccerplayershapepose_torch.fit.engine import FitConfig, FitInit
@@ -127,13 +133,38 @@ def corrupt_proxy_inputs(draws: CorruptionDraws, silhouette: torch.Tensor,
     return sil, joints, torch.where(draws.dropped, 0.0, scores)
 
 
-def _build_proxy(sil, joints, wh: int, proxy_channels: int):
-    """The 18-channel proxy [sil, heatmaps]; the IUV variants (20, 21) need
-    the part/UV image of a later slice."""
-    if proxy_channels != 18:
-        raise NotImplementedError(
-            f"only the 18-channel proxy is ported, got {proxy_channels}")
-    return create_proxy_representation(sil, joints, in_wh=wh)
+def gt_iuv_image(part: torch.Tensor, uv: torch.Tensor, wh: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stride-4 ground-truth part (B, h, w) and UV (B, h, w, 2) maps →
+    (B, wh, wh, 3) IUV image in [0, 1], the deployment convention (the
+    reference divides its stored DensePose PNG by 255): channel 0 is the
+    part index / 255, channels 1-2 U and V (0 on background). Part labels
+    upsample nearest, UV bilinearly (half-pixel centres). ``mask``
+    (B, wh, wh) multiplies the image: a cut-out silhouette hits the IUV
+    too."""
+    part_f = F.interpolate(part.to(torch.float32)[:, None], size=(wh, wh),
+                           mode="nearest")[:, 0]
+    uv_f = F.interpolate(uv.permute(0, 3, 1, 2), size=(wh, wh),
+                         mode="bilinear", align_corners=False)
+    fg = (part_f > 0).to(torch.float32)
+    iuv = torch.stack([part_f, uv_f[:, 0] * 255.0 * fg,
+                       uv_f[:, 1] * 255.0 * fg], dim=-1) / 255.0
+    if mask is not None:
+        iuv = iuv * mask[..., None]
+    return iuv
+
+
+def _build_proxy(sil, joints, wh: int, proxy_channels: int, iuv=None):
+    """The proxy of ``proxy_channels`` channels: 18 [sil, heatmaps], 21
+    [sil, heatmaps, IUV] or 20 [heatmaps, IUV]; ``iuv`` (B, wh, wh, 3) in
+    [0, 1] for the last two."""
+    if proxy_channels == 18:
+        return create_proxy_representation(sil, joints, in_wh=wh)
+    if proxy_channels not in (20, 21):
+        raise ValueError(f"no {proxy_channels}-channel proxy")
+    return create_proxy_representation(
+        sil, joints, in_wh=wh, iuv=iuv.permute(0, 3, 1, 2),
+        include_silhouette=(proxy_channels == 21))
 
 
 class RegressorDraws(NamedTuple):
@@ -154,14 +185,21 @@ def synth_regressor_batch(assets: SMPLAssets, draws: RegressorDraws,
     joints2d (B, 17, 2)`` in the 512² proxy frame, ``target_pose
     (B, 24, 3, 3), target_betas (B, 10), gt_cam_wp (B, 3)}``. ``wh`` is
     the silhouette render size; the joint targets are rescaled to 512²
-    whatever it is. Corruption applies when the draws carry it."""
+    whatever it is. Corruption applies when the draws carry it, and its
+    cut-out silhouette masks the IUV. ``proxy_channels``: 18 [sil,
+    heatmaps], 21 [sil, heatmaps, ground-truth IUV] or 20 [heatmaps,
+    IUV]."""
     data = render_crop_batch(assets, draws.crop, wh, return_params=True)
     sil, joints = data["silhouette"], data["joints2d"]
     if draws.corruption is not None:
         sil, joints = corrupt_proxy_inputs(
             draws_to(draws.corruption, sil.device), sil, joints)
+    iuv = None
+    if proxy_channels != 18:
+        iuv = gt_iuv_image(data["part"], data["uv"], wh,
+                           mask=sil if draws.corruption is not None else None)
     scale = cfg.PROXY_REP_INPUT_WH / float(wh)
-    return {"proxy": _build_proxy(sil, joints, wh, proxy_channels),
+    return {"proxy": _build_proxy(sil, joints, wh, proxy_channels, iuv),
             "joints2d": data["joints2d"] * scale,        # clean supervision
             "target_pose": torch.cat([data["global_orient"],
                                       data["body_pose"]], dim=1),
@@ -446,8 +484,18 @@ def evaluate_regressor_e2e(regressor: SingleInputRegressor,
         n_ok += len(keep)
         sil = torch.from_numpy(np.stack([results[j][1] for j in keep]))
         kps = torch.from_numpy(np.stack([results[j][0][:, :2] for j in keep]))
+        iuv = None
+        if regressor.in_channels != 18:
+            # The extractor's IUV is decode_iuv's (part 0..24, U, V
+            # 0..255); /255 is the reference's loaded-PNG scaling. A crop
+            # with no IUV gets zeros.
+            iuv = torch.from_numpy(np.stack([
+                results[j][2].astype(np.float32) / 255.0
+                if results[j][2] is not None
+                else np.zeros((wh, wh, 3), np.float32)
+                for j in keep])).to(dev)
         proxy = _build_proxy(sil.to(dev), kps.to(dev), wh,
-                             regressor.in_channels)
+                             regressor.in_channels, iuv)
         idx = torch.tensor(keep, device=dev)
         target_pose = torch.cat([data["global_orient"], data["body_pose"]],
                                 dim=1)[idx]
@@ -463,3 +511,28 @@ def evaluate_regressor_e2e(regressor: SingleInputRegressor,
     out.update(n_images=n_ok, extraction_failures=n_fail, eval_wh=wh,
                via="proxynet_extractor")
     return out
+
+
+def expand_regressor_channels(src_path: str, dst_path: str,
+                              proxy_channels: int) -> None:
+    """18-channel regressor weights (a flax-layout npz) → a 20- or
+    21-channel warm start at ``dst_path``. Only the stem convolution reads
+    the proxy's channels; every other variable is copied as it is. The new
+    IUV channels get zero kernel slices, so the 21-channel net computes
+    what the 18-channel one does; the 20-channel one drops the silhouette
+    channel (kernel slices 1..17 move to the heatmaps' places 0..16)."""
+    with np.load(src_path) as z:
+        flat = {k: z[k] for k in z.files}
+    key = "params/ResNet_0/Conv_0/kernel"
+    k = flat[key]                                       # (7, 7, 18, 64)
+    if k.shape[2] != 18:
+        raise ValueError(f"{src_path}: stem kernel {k.shape}, not 18 inputs")
+    new = np.zeros(k.shape[:2] + (proxy_channels, k.shape[3]), k.dtype)
+    if proxy_channels == 21:        # [sil, 17 heatmaps, IUV]
+        new[:, :, :18] = k
+    elif proxy_channels == 20:      # [17 heatmaps, IUV]
+        new[:, :, :17] = k[:, :, 1:18]
+    else:
+        raise ValueError(proxy_channels)
+    flat[key] = new
+    np.savez(dst_path, **flat)

@@ -86,9 +86,11 @@ def test_port_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     # Every module of the port, the stage drivers, the IO, the command
-    # line (cli, __main__) and the front end (video, classification,
-    # detection, preprocess, field) among them.
-    assert int(out.stdout.split()[-1]) >= 65
+    # line (cli, __main__), the front end (video, classification,
+    # detection, preprocess, field), texture extraction (texture.uv,
+    # texture.quality) and the relation module (models.relation,
+    # train.relation) among them.
+    assert int(out.stdout.split()[-1]) >= 70
 
 
 @pytest.mark.parametrize("needle", ["cpp_extension", "import triton",
@@ -174,6 +176,22 @@ def test_zbuffer_wrappers_take_plain_versions_on_cpu():
     out, mask = attr.rasterize_attributes(v, z, torch.ones(1, 3, 2), faces, 16)
     assert torch.equal(mask, fid >= 0)
     assert torch.allclose(out[mask], torch.ones(1, 2))
+    assert zb.LAUNCHES == {"zbuffer_bary": 0}
+
+
+def test_attribute_renders_take_the_plain_route_on_cpu():
+    """The part-segmentation and textured renders of CPU tensors go
+    through the plain z-buffer and count no K3 launch."""
+    v = torch.tensor([[[2.0, 2.0], [12.0, 3.0], [6.0, 12.0]]])
+    z = torch.ones(1, 3)
+    faces = torch.tensor([[0, 1, 2]])
+    zb.reset_launch_counts()
+    labels = attr.render_part_segmentation(v, z, torch.tensor([2, 2, 2]),
+                                           faces, 16)
+    img, mask = attr.render_textured(v, z, torch.full((3, 2), 0.5), faces,
+                                     torch.ones(4, 4, 3), 16)
+    assert torch.equal(labels > 0, mask) and (labels[mask] == 2).all()
+    assert torch.allclose(img[mask], torch.ones(1, 3))
     assert zb.LAUNCHES == {"zbuffer_bary": 0}
 
 
