@@ -69,7 +69,23 @@ call and drives the port's two paths on the card:
   predict, single-view, calc-metrics); the classifier on the card held to
   the CPU and timed per frame; the detect and crop stages in process,
   timed and split; and the single-view stage at its defaults on the
-  clip's crops (K1/K2 at 32 rows x 512^2).
+  clip's crops (K1/K2 at 32 rows x 512^2);
+* after those, the trainers, on the folder tree above: the distillation
+  trainer (``drivers/training.py:train_regressor`` on the tree's
+  broadcast proxies and broadcast-view pseudo-GT, warm-started from the
+  committed regressor, 3 epochs and a resumed 4th, its first step held to
+  the CPU, its fp16 weights reloaded); the self-supervised trainer
+  (``train/selfsup.py``, item 'both') on 8 of the tree's views: 10 steps
+  through K1 forward and K2 backward at 512^2 and sigma 1e-4, one step
+  held to the plain route on 2 rows, the kernels timed at that shape;
+  ``evaluate_model`` and ``evaluate_model_relate`` (v0, v1, and v1 with
+  the camera re-fit): each arm's metrics held to
+  ``weights/relate_eval_v{0,1}.json`` within 5.84 standard errors of the
+  tree's per-scene spread (Student's t, 3 degrees of freedom, 0.995), the relation module's effect (with / without)
+  within 25% of the records', one scene held to the CPU; the relation
+  trainer (v0, the record's settings, the first 300 steps of its
+  3000-step schedule, the first 3 held to the CPU); and the command
+  line's ``train`` and ``train --resume`` as subprocesses.
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -102,7 +118,12 @@ import tempfile
 import time
 from collections import Counter
 
-BUDGET_S = 900
+# The wall-clock budget. With the training phases the same checks took 659
+# s on one host of the card and 882 s before their last phase on another
+# (the host-bound phases move 40-60% from host to host); 1080 s keeps a
+# slow host's run inside it and leaves the 1200 s a run may take room for
+# the start-up.
+BUDGET_S = 1080
 DEVICE = "cuda"
 # (batch, render size, sigma): the fit's sigma, and the self-supervised
 # trainer's 1e-4, whose faces' supports are 3.2x wider.
@@ -335,6 +356,46 @@ REL_BATCHES = 64
 REL_B = 8
 REL_PLAYERS = 6
 REL_TOL = 1e-5            # card vs CPU, fp32 with TF32 off
+# The training phases, on the mint tree. distill_train: the distillation
+# trainer as scripts/distill_circle.py's train phase runs it (warm start
+# from the committed regressor, lr 3e-5, seed 7, --players + 2 = 8 rows a
+# scene), 3 epochs and a resumed 4th (the record ran 20 on 8 games).
+DISTILL_LR, DISTILL_SEED, DISTILL_PLAYERS, DISTILL_EPOCHS = 3e-5, 7, 8, 3
+DISTILL_LOSS_REL = 1e-4   # first step's loss, card vs CPU (cuDNN vs CPU)
+DISTILL_PROFILE_STEPS = 4
+# selfsup_train: the self-supervised trainer ('both') on 8 of the tree's
+# views at 512^2 and sigma 1e-4, warm-started, 10 steps; the kernels held
+# to the plain route on 2 rows of one step.
+SELFSUP_ROWS, SELFSUP_STEPS, SELFSUP_WH, SELFSUP_SIGMA = 8, 10, 512, 1e-4
+# Adam's rate of the 10 steps. Adam's first step moves each of the 11.2 M
+# parameters by about +-lr; at 1e-4 that throws the warm-started net off
+# (IoU 0.60 -> 0.28, joints-2D error 34 -> 167 px), and 1e-5 is the largest
+# of 1e-4, 3e-5, 1e-5, 3e-6, 1e-6 at which every step of 'both' lowered
+# its loss (scripts/selfsup_lr_probe.py; NVIDIA H100 80GB HBM3, 700.00
+# W). In 'both' the silhouette sum (~2e6) outweighs the joints-2D term
+# (~0.05) by 1e7, so the steps follow the silhouette alone: its loss and
+# the IoU must improve, and the joints-2D error is held on 10 steps of
+# item 'pose' instead.
+SELFSUP_LR = 1e-5
+SELFSUP_PLAIN_B = 2
+SELFSUP_LOSS_REL = 1e-5   # the step's loss, K1/K2 vs the plain route
+SELFSUP_GRAD_REL = 1e-4   # the ResNet stem's gradient, relative L2
+# relate_eval: evaluate_model and evaluate_model_relate (v0, v1) with the
+# committed regressor on the tree's broadcast views, boxes from its
+# scenes/, as scripts/train_relation.py relate runs them; held to
+# weights/relate_eval_v{0,1}.json (192 players there, 24 here).
+RELATE_RECORDS = {v: os.path.join("weights", "relate_eval_v%d.json" % v)
+                  for v in (0, 1)}
+RELATE_TOL = 1e-4         # one scene, card vs CPU, relative per metric
+# Record vs the tree's mean, in standard errors from 4 scenes: the 0.995
+# quantile of Student's t with their 3 degrees of freedom (3 would be its
+# 0.971 quantile: a false failure in about 6 of 100 checks of one metric).
+RELATE_SE = 5.84
+# relation_train: train_relation v0 with the record's settings (b 8, 6
+# players, lr 1e-3, the 3000-step schedule); the first REL_TRAIN_STEPS.
+REL_TRAIN_STEPS, REL_TRAIN_SCHEDULE, REL_TRAIN_SEED = 300, 3000, 0
+REL_TRAIN_LOSS_REL = 1e-4  # first 3 steps, card vs CPU
+# cli_train: the train subcommand on the 1-scene tree, 1 epoch + resume.
 
 _T0 = time.time()
 # What a run started and must stop or remove if the budget cuts it off:
@@ -558,6 +619,9 @@ def main() -> int:
         from soccerplayershapepose_torch.pipeline.densepose import decode_png
         from soccerplayershapepose_torch.pipeline.extract import (
             create_proxy_stage)
+        from soccerplayershapepose_torch.drivers import training
+        from soccerplayershapepose_torch.train import distill, selfsup
+        from soccerplayershapepose_torch.train import relation as rel_train
     except ImportError as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
@@ -568,7 +632,7 @@ def main() -> int:
                  PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD,
                  *FIT3D_RECORDS.values(), MINT_RECORD, E2E_CLIP_RECORD,
                  CLS_WEIGHTS, DET_META, TEX_RECORD, *REL_WEIGHTS.values(),
-                 *REL_RECORDS.values()):
+                 *REL_RECORDS.values(), *RELATE_RECORDS.values()):
         if not os.path.isfile(os.path.join(root, path)):
             print("chip_smoke: %s is missing; the evaluations need the "
                   "committed weights and records" % path, file=sys.stderr)
@@ -796,8 +860,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, out
 
-    def k12_case(v2d, wh, plain_b=None):
-        """K1 and K2 at one fit shape (B = v2d's rows, wh^2, sigma SIGMA):
+    def k12_case(v2d, wh, plain_b=None, sigma=SIGMA):
+        """K1 and K2 at one path's shape (B = v2d's rows, wh^2, ``sigma``):
         timed, held against their plain versions on the first ``plain_b``
         rows (default all) of the same launch, and each evaluating exactly
         the pairs inside the faces' boxes padded by the support radius.
@@ -805,7 +869,7 @@ def main() -> int:
         launchers and their outputs for the caller."""
         b = v2d.shape[0]
         pb = b if plain_b is None else plain_b
-        args, sigma_px, margin = band_inputs(v2d, wh)
+        args, sigma_px, margin = band_inputs(v2d, wh, sigma)
         fc, cymin, cymax, cxmin, cxmax, lo, hi = args
         s = br.launch_fwd(*args, wh, sigma_px, margin)
         gw = torch.randn(s.shape, generator=gen, device=dev)
@@ -865,7 +929,7 @@ def main() -> int:
         bound = {k: roofline_ms(support * FLOPS_PER_PAIR[k], bytes_moved[k])
                  for k in k_ms}
         return {
-            "b": b, "wh": wh, "sigma": SIGMA, "plain_b": pb,
+            "b": b, "wh": wh, "sigma": sigma, "plain_b": pb,
             "support_radius_px": br.support_radius(sigma_px),
             "support_pairs": support, "pairs_evaluated": evaluated,
             "chunk_visits": n_cv, "chunk_visits_unpruned": all_chunk_visits,
@@ -2816,18 +2880,441 @@ def main() -> int:
         k3_new += k3_clip
         return k12_paths, k3_paths, k12_new, k3_new
 
-    work = tempfile.mkdtemp(prefix="_smoke_", dir=root)
-    _WORK_DIRS.append(work)
-    try:
-        for phases in (lambda: tree_phases(work), lambda: clip_phases(
-                work, os.path.join(work, "rgb", "images"))):
-            phases = phases()
-            k12_launches.update(phases[0])
-            k3_fit_launches.update(phases[1])
-            k12 += phases[2]
-            k3 += phases[3]
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    def train_phases(work: str):
+        """The training phases on the mint tree under ``work`` (and its
+        one-scene copy, whose broadcast fits the cli phase wrote): returns
+        the K1/K2 launches by path and the trainer's K1/K2 shape."""
+        tree = os.path.join(work, "mint")
+        d = {k: os.path.join(tree, k) for k in (
+            "images", "proxies", "broad_images", "broad_proxies", "broad",
+            "scenes")}
+        one = os.path.join(work, "one_scene")
+        o = {k: os.path.join(one, k) for k in (
+            "broad_images", "broad_proxies", "broad")}
+        broad = (d["broad_images"], d["broad_proxies"], d["broad"])
+        weights = os.path.join(root, WEIGHTS)
+
+        def committed_state(device=dev, lr=DISTILL_LR):
+            return distill.make_train_state(
+                load_regressor_weights(weights, device), learning_rate=lr)
+
+        def timed_steps(module, name, times):
+            """Run ``fn`` with ``module.<name>`` (a step factory) making
+            steps that append their synchronised wall s to ``times``."""
+            real = getattr(module, name)
+
+            def make(*a, **kw):
+                step = real(*a, **kw)
+
+                def step_timed(*sa, **skw):
+                    t0 = time.time()
+                    out = step(*sa, **skw)
+                    torch.cuda.synchronize()
+                    times.append(time.time() - t0)
+                    return out
+                return step_timed
+
+            def run(fn):
+                setattr(module, name, make)
+                try:
+                    return fn()
+                finally:
+                    setattr(module, name, real)
+            return run
+
+        def per_scene(fn, divisor):
+            """``fn()`` (an evaluation over the tree's scenes) with each
+            scene's metric means kept from the sums it computes anyway:
+            (its result, [per-scene means])."""
+            real, scenes = training._metric_sums, []
+
+            def keep(aux, mask):
+                sums = real(aux, mask)
+                scenes.append(training._means(
+                    sums, int(np.sum(mask)), divisor))
+                return sums
+            training._metric_sums = keep
+            try:
+                return fn(), scenes
+            finally:
+                training._metric_sums = real
+
+        def rel_gaps(got, want):
+            return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                    for k in want if k not in ("num_players",
+                                               "joints2D_l2es")}
+
+        # -- distill_train: the distillation trainer on the broadcast tree --
+        t = time.time()
+        ck = os.path.join(work, "distill_ckpt")
+        # The first step on one scene, card against CPU, from the same
+        # warm start.
+        b0 = training.gather_scene_batches(*broad, DISTILL_PLAYERS)[0]
+        first = {}
+        for where in ("cpu", dev):
+            st = committed_state(where)
+            _, m, _ = distill.make_train_step()(
+                st, assets, training._device_batch(b0, torch.device(where)))
+            first[str(where)] = float(m["loss"])
+        loss_gap = abs(first[str(dev)] - first["cpu"]) / abs(first["cpu"])
+        check(loss_gap <= DISTILL_LOSS_REL,
+              "the first distillation step's loss on the card %.6g vs the "
+              "CPU %.6g" % (first[str(dev)], first["cpu"]))
+        # The committed regressor's evaluation, with each scene's metrics
+        # kept: relate_eval's arm without the relation module too.
+        before, before_scenes = per_scene(
+            lambda: training.evaluate_model(assets, *broad,
+                                            committed_state()),
+            training._divisor)
+        step_s = []
+        kw = dict(max_players=DISTILL_PLAYERS, learning_rate=DISTILL_LR,
+                  seed=DISTILL_SEED, init_weights=weights,
+                  log_path=os.path.join(work, "distill_tracker.pkl"),
+                  device=dev)
+        run3, run3_s, run3_k12, _ = counted(lambda: timed_steps(
+            training, "make_train_step", step_s)(
+                lambda: training.train_regressor(
+                    assets, *broad, ck, epochs=DISTILL_EPOCHS, **kw)))
+        run4, run4_s, _, _ = counted(lambda: training.train_regressor(
+            assets, *broad, ck, epochs=DISTILL_EPOCHS + 1, resume=True,
+            **kw))
+        n_scenes = len(training.gather_scene_batches(*broad,
+                                                     DISTILL_PLAYERS))
+        hist = run4["history"]
+        check(run3_k12 == {"band_raster_fwd": 0, "band_raster_bwd": 0},
+              "the distillation trainer launched K1/K2: %s" % run3_k12)
+        check(run4["state"].step == (DISTILL_EPOCHS + 1) * n_scenes
+              and all(len(v) == DISTILL_EPOCHS + 1 for v in hist.values()),
+              "the resumed run holds %d steps and %s epochs"
+              % (run4["state"].step, {len(v) for v in hist.values()}))
+        check(hist["train_losses"][:DISTILL_EPOCHS]
+              == run3["history"]["train_losses"],
+              "the resumed history does not continue the first run's")
+        check(all(np.isfinite(v).all() for v in hist.values()),
+              "a tracked metric is not finite: %s" % hist)
+        after = training.evaluate_model(assets, *broad, run4["state"],
+                                        DISTILL_PLAYERS)
+        check(all(np.isfinite(v) for v in after.values()),
+              "evaluate_model after training: %s" % after)
+        # The saved fp16 weights reload as the trained weights rounded.
+        npz = os.path.join(work, "regressor_18ch_distilled.npz")
+        straps.save_regressor_weights(npz, run4["state"].regressor,
+                                      dtype=np.float16)
+        back = load_regressor_weights(npz, dev)
+        trained = run4["state"].regressor.eval()
+        for k, v in trained.state_dict().items():
+            if v.is_floating_point():
+                check(torch.equal(back.state_dict()[k],
+                                  v.half().float()),
+                      "%s did not reload as its fp16 rounding" % k)
+        db0 = training._device_batch(b0, dev)
+        init0 = distill.default_initial_params(assets.mean_pose_rot6d,
+                                               assets.mean_shape)
+        with torch.no_grad():
+            p_back, p_tr = back(db0["proxy"], init0), trained(db0["proxy"],
+                                                              init0)
+        fp16_gap = max(float((a - b_).abs().max())
+                       for a, b_ in zip(p_back, p_tr))
+        prof_state = committed_state()
+        prof_step = distill.make_train_step()
+        prof_batch = training._device_batch(b0, dev)
+        prof_step(prof_state, assets, prof_batch)
+        profile = device_profile(lambda: [prof_step(prof_state, assets,
+                                                    prof_batch)
+                                          for _ in range(
+                                              DISTILL_PROFILE_STEPS)])
+        steady = step_s[1:] if len(step_s) > 1 else step_s
+        emit("distill_train", t, scenes=n_scenes, rows=DISTILL_PLAYERS,
+             lr=DISTILL_LR, seed=DISTILL_SEED,
+             epochs=DISTILL_EPOCHS + 1, resumed_at=DISTILL_EPOCHS + 1,
+             reduced_from="8 games x 20 epochs (weights/distill_r05/"
+             "train_history.json); 1 game x 4 epochs here",
+             first_step_loss={"card": first[str(dev)], "cpu": first["cpu"],
+                              "rel_gap": loss_gap, "tol": DISTILL_LOSS_REL},
+             train_s={"3_epochs": round(run3_s, 4),
+                      "resumed_4th": round(run4_s, 4)},
+             steps=len(step_s), step_timing="the train step alone, "
+             "synchronised (not the batch's proxy or the metric sums)",
+             ms_per_step=round(float(np.mean(steady)) * 1e3, 3),
+             steps_per_s=round(1.0 / float(np.mean(steady)), 3),
+             best_epoch=run4["best_epoch"],
+             best_val={k: float(v) for k, v in run4["best_val"].items()},
+             val_pves_pa=hist["val_pves_pa"],
+             val_mpjpes_pa=hist["val_mpjpes_pa"],
+             train_losses=hist["train_losses"],
+             evaluate_model_before=before, evaluate_model_after=after,
+             fp16_reload_max_abs_vs_fp32=fp16_gap,
+             k1_k2_launches=run3_k12,
+             profile_note="%d train steps of one scene (8 rows), the "
+             "committed warm start" % DISTILL_PROFILE_STEPS,
+             profile=profile, nvidia_smi=smi)
+
+        # -- selfsup_train: K1/K2 at sigma 1e-4 in a training step ----------
+        t = time.time()
+        views = stages._gather_views(d["images"], d["proxies"],
+                                     True)[:SELFSUP_ROWS]
+        sils, j2ds = [], []
+        for node, view in views:
+            s_i, j_i = stages.load_proxy_batch(
+                os.path.join(d["proxies"], node.game, node.scene,
+                             node.player), [view])
+            sils.append(s_i[0])
+            j2ds.append(j_i[0])
+        sil_t = torch.from_numpy(np.stack(sils)).to(dev)
+        j2d_t = torch.from_numpy(np.stack(j2ds)).to(dev)
+        ss_batch = {"proxy": create_proxy_representation(sil_t, j2d_t),
+                    "silhouette": sil_t, "joints2d": j2d_t[..., :2]}
+        ss_step = selfsup.make_selfsup_step("both", render_wh=SELFSUP_WH,
+                                            sigma=SELFSUP_SIGMA)
+        # One step on 2 rows through K1/K2 and through the plain route.
+        two = {k: v[:SELFSUP_PLAIN_B] for k, v in ss_batch.items()}
+
+        def plain_render(vertices, translation, faces_, img_wh, focal,
+                         sigma, render_wh):
+            v2d = perspective_project(vertices, None, translation,
+                                      focal_length=focal, img_wh=img_wh)
+            return softras.soft_silhouette(v2d * (render_wh / img_wh),
+                                           faces_, render_wh, sigma=sigma)
+
+        routes = {}
+        for route in ("kernels", "plain"):
+            st = selfsup.make_selfsup_state(
+                load_regressor_weights(weights, dev), "both", SELFSUP_LR)
+            real_render = selfsup.render_silhouette
+            if route == "plain":
+                selfsup.render_silhouette = plain_render
+            try:
+                (_, m, _), r_s, r_k12, _ = counted(lambda: ss_step(
+                    st, assets, two))
+            finally:
+                selfsup.render_silhouette = real_render
+            routes[route] = (float(m["loss"]),
+                             st.regressor.encoder.conv.weight.grad.clone(),
+                             r_k12, r_s)
+        check(routes["kernels"][2] == {"band_raster_fwd": 1,
+                                       "band_raster_bwd": 1}
+              and routes["plain"][2] == {"band_raster_fwd": 0,
+                                         "band_raster_bwd": 0},
+              "the selfsup step's launches: %s / %s"
+              % (routes["kernels"][2], routes["plain"][2]))
+        ss_loss_gap = abs(routes["kernels"][0] - routes["plain"][0]) \
+            / abs(routes["plain"][0])
+        ss_grad_gap = rel_l2(routes["kernels"][1], routes["plain"][1])
+        check(ss_loss_gap <= SELFSUP_LOSS_REL
+              and ss_grad_gap <= SELFSUP_GRAD_REL,
+              "the selfsup step through K1/K2 disagrees with the plain "
+              "route: loss %.3g, stem gradient %.3g" % (ss_loss_gap,
+                                                        ss_grad_gap))
+        # The 10 steps of the path.
+        st = selfsup.make_selfsup_state(load_regressor_weights(weights, dev),
+                                        "both", SELFSUP_LR)
+        ss_step(st, assets, ss_batch)      # warm-up, not counted
+        st = selfsup.make_selfsup_state(load_regressor_weights(weights, dev),
+                                        "both", SELFSUP_LR)
+        curve = []
+
+        def ten_steps():
+            for _ in range(SELFSUP_STEPS):
+                _, m, _ = ss_step(st, assets, ss_batch)
+                curve.append((float(m["joints2D_l2e"]),
+                              float(m["silh_iou"]), float(m["loss"])))
+
+        _, ss_s, ss_k12, _ = counted(ten_steps)
+        check(ss_k12 == {"band_raster_fwd": SELFSUP_STEPS,
+                         "band_raster_bwd": SELFSUP_STEPS},
+              "the self-supervised steps launched K1/K2 %s times" % ss_k12)
+        arr = np.array(curve)
+        check(np.isfinite(arr).all(), "selfsup metrics not finite: %s"
+              % curve)
+        check(arr[-3:, 2].mean() < arr[0, 2] and arr[-3:, 1].mean()
+              > arr[0, 1],
+              "the self-supervised steps do not lower the loss and raise the "
+              "IoU: %s" % curve)
+        # Item 'pose' (joints 2D alone, no render) on the same batch.
+        st = selfsup.make_selfsup_state(load_regressor_weights(weights, dev),
+                                        "pose", SELFSUP_LR)
+        pose_step = selfsup.make_selfsup_step("pose")
+        pose_curve = [float(pose_step(st, assets, ss_batch)[1]
+                            ["joints2D_l2e"]) for _ in range(SELFSUP_STEPS)]
+        check(np.isfinite(pose_curve).all()
+              and np.mean(pose_curve[-3:]) < pose_curve[0],
+              "the 'pose' steps do not lower the joints-2D error: %s"
+              % pose_curve)
+        # K1/K2 at the trainer's shape: the 8 rows' bodies as the
+        # committed regressor predicts them, at 512^2 and sigma 1e-4.
+        with torch.no_grad():
+            pred = predict_smpl(load_regressor_weights(weights, dev), assets,
+                                sil_t, j2d_t, device=dev)
+            v2d = perspective_project(pred.vertices, None, pred.translation,
+                                      focal_length=cfg.FOCAL_LENGTH,
+                                      img_wh=PROXY_WH).contiguous()
+        case = dict(k12_case(v2d, SELFSUP_WH, SELFSUP_PLAIN_B,
+                             sigma=SELFSUP_SIGMA), path="selfsup_train")
+        emit("selfsup_train", t, rows=SELFSUP_ROWS, wh=SELFSUP_WH,
+             sigma=SELFSUP_SIGMA, item="both", lr=SELFSUP_LR,
+             steps=SELFSUP_STEPS, wall_s=round(ss_s, 4),
+             ms_per_step=round(ss_s / SELFSUP_STEPS * 1e3, 3),
+             joints2d_l2e=arr[:, 0].tolist(), silh_iou=arr[:, 1].tolist(),
+             loss=arr[:, 2].tolist(), pose_item_joints2d_l2e=pose_curve,
+             k1_k2_launches=ss_k12,
+             parity={"rows": SELFSUP_PLAIN_B, "loss_rel": ss_loss_gap,
+                     "loss_tol": SELFSUP_LOSS_REL,
+                     "stem_grad_rel_l2": ss_grad_gap,
+                     "grad_tol": SELFSUP_GRAD_REL,
+                     "kernels_step_s": round(routes["kernels"][3], 4),
+                     "plain_step_s": round(routes["plain"][3], 4)},
+             k1_ms=case["ms"]["band_raster_fwd"],
+             k2_ms=case["ms"]["band_raster_bwd"],
+             bound_ms=case["bound_ms"],
+             plain_ms_on_plain_b=case["plain_ms"],
+             support_radius_px=case["support_radius_px"],
+             support_pairs=case["support_pairs"],
+             pairs_evaluated=case["pairs_evaluated"],
+             k1_max_abs=case["k1_max_abs"], k2_rel_l2=case["k2_rel_l2"],
+             nvidia_smi=smi)
+
+        # -- relate_eval: the relation module on the tree -------------------
+        t = time.time()
+        base_state = committed_state()
+        rel_models = {v: rel_train.load_relation_weights(os.path.join(
+            root, REL_WEIGHTS[v]), dev) for v in (0, 1)}
+        base, scenes = before, {"without_relation": before_scenes}
+        relate = {}
+        for v in (0, 1):
+            relate[v], scenes["with_relation_v%d" % v] = per_scene(
+                lambda: training.evaluate_model_relate(
+                    assets, *broad, base_state, relation=rel_models[v],
+                    boxes_root=d["scenes"]), training._divisor_relate)
+        relate_cam = training.evaluate_model_relate(
+            assets, *broad, base_state, relation=rel_models[1],
+            boxes_root=d["scenes"], optimize_cam=True)
+        # The records hold 192 players of 8 games, the tree 24 of one
+        # game's 4 scenes. Each arm's metrics: the record within
+        # RELATE_SE standard errors of the tree's mean, the error taken
+        # from the arm's per-scene spread; the module's effect (with /
+        # without, per metric), which cancels most of the game's level,
+        # within RECORD_REL of the record's.
+        keys = [k for k in base if k not in ("num_players", "joints2D_l2es")]
+        spread = {}
+        for arm, rows in scenes.items():
+            check(len(rows) == len(before_scenes) >= 2,
+                  "relate %s: %d scenes kept" % (arm, len(rows)))
+            spread[arm] = {k: {
+                "mean": float(np.mean([r[k] for r in rows])),
+                "se": float(np.std([r[k] for r in rows], ddof=1)
+                            / np.sqrt(len(rows)))} for k in keys}
+        held, effect, in_se = {}, {}, {}
+        for v in (0, 1):
+            with open(os.path.join(root, RELATE_RECORDS[v])) as f:
+                rec = json.load(f)
+            for arm, name, got in (
+                    ("without_relation", "without_relation", base),
+                    ("with_relation", "with_relation_v%d" % v, relate[v])):
+                tag = "v%d_%s" % (v, arm)
+                held[tag] = rel_gaps(got, rec[arm])
+                in_se[tag] = {k: abs(got[k] - rec[arm][k])
+                              / max(spread[name][k]["se"], 1e-12)
+                              for k in keys}
+                far = {k: round(g, 2) for k, g in in_se[tag].items()
+                       if g > RELATE_SE}
+                check(not far, "relate %s: the record lies more than %g "
+                      "standard errors of the tree's mean away: %s"
+                      % (tag, RELATE_SE, far))
+            ratio = {k: relate[v][k] / base[k] for k in keys}
+            rec_ratio = {k: rec["with_relation"][k]
+                         / rec["without_relation"][k] for k in keys}
+            effect["v%d" % v] = {k: [ratio[k], rec_ratio[k]] for k in keys}
+            gaps = rel_gaps(ratio, rec_ratio)
+            check(max(gaps.values()) <= RECORD_REL,
+                  "relate v%d: the module's effect %s is not within %d%% of "
+                  "its record's" % (v, {k: round(g, 3) for k, g in
+                                        gaps.items() if g > RECORD_REL},
+                                    RECORD_REL * 100))
+        check(all(np.isfinite(x) for x in relate_cam.values()),
+              "evaluate_model_relate with optimize_cam: %s" % relate_cam)
+        # One scene on the card against the CPU.
+        one_args = (o["broad_images"], o["broad_proxies"], o["broad"])
+        one_gpu = training.evaluate_model_relate(
+            assets, *one_args, base_state, relation=rel_models[0],
+            boxes_root=d["scenes"])
+        cpu_state = distill.make_train_state(load_regressor_weights(
+            weights, "cpu"))
+        one_cpu = training.evaluate_model_relate(
+            assets.to("cpu"), *one_args, cpu_state,
+            relation=rel_train.load_relation_weights(
+                os.path.join(root, REL_WEIGHTS[0]), "cpu"),
+            boxes_root=d["scenes"])
+        one_gap = max(rel_gaps(one_gpu, one_cpu).values())
+        check(one_gap <= RELATE_TOL, "relate on one scene: card vs CPU %.3g"
+              % one_gap)
+        emit("relate_eval", t, players=base["num_players"],
+             record_players=192, record_rel_tol=RECORD_REL,
+             without_relation=base, with_relation_v0=relate[0],
+             with_relation_v1=relate[1], v1_optimize_cam=relate_cam,
+             effect_with_over_without_vs_record=effect,
+             rel_gap_to_records=held, scene_spread=spread,
+             record_gap_in_se=in_se, record_se_tol=RELATE_SE,
+             one_scene_card_vs_cpu=one_gap,
+             one_scene_tol=RELATE_TOL, nvidia_smi=smi)
+
+        # -- relation_train: the relation trainer v0 -------------------------
+        t = time.time()
+        rt_kw = dict(b=8, n_players=6, lr=1e-3, seed=REL_TRAIN_SEED,
+                     schedule_steps=REL_TRAIN_SCHEDULE, log_every=1,
+                     verbose=False)
+        _, h_cpu = rel_train.train_relation(steps=3, device="cpu", **rt_kw)
+        _, h_gpu = rel_train.train_relation(steps=3, device=dev, **rt_kw)
+        rt_gap = max(abs(a["loss"] - b_["loss"]) / abs(b_["loss"])
+                     for a, b_ in zip(h_gpu, h_cpu))
+        check(rt_gap <= REL_TRAIN_LOSS_REL,
+              "relation training's first 3 steps: card vs CPU %.3g" % rt_gap)
+        rt_times = []
+        t_rt = time.time()
+        _, hist_rt = timed_steps(rel_train, "make_relation_train_step",
+                                 rt_times)(lambda: rel_train.train_relation(
+                                     steps=REL_TRAIN_STEPS, device=dev,
+                                     **rt_kw))
+        rt_wall = time.time() - t_rt
+        tail = hist_rt[-100:]
+        loss_tail = float(np.mean([h["loss"] for h in tail]))
+        in_tail = float(np.mean([h["input_mse"] for h in tail]))
+        check(np.isfinite(loss_tail) and loss_tail < in_tail,
+              "relation training: the last 100 steps' loss %.4g is not below "
+              "their input %.4g" % (loss_tail, in_tail))
+        ms_step = float(np.median(rt_times)) * 1e3
+        emit("relation_train", t, variant="v0", b=8, players=6, lr=1e-3,
+             steps=REL_TRAIN_STEPS, schedule_steps=REL_TRAIN_SCHEDULE,
+             first_3_card_vs_cpu=rt_gap, tol=REL_TRAIN_LOSS_REL,
+             last_100_loss=loss_tail, last_100_input_mse=in_tail,
+             wall_s=round(rt_wall, 3),
+             ms_per_step_with_batch_draws=round(
+                 rt_wall / REL_TRAIN_STEPS * 1e3, 3),
+             step_alone_ms_median=round(ms_step, 3),
+             projected_3000_steps_s=round(rt_wall * 3000 / REL_TRAIN_STEPS,
+                                          2), nvidia_smi=smi)
+
+        # -- cli_train: the train subcommand, then --resume ----------------
+        t = time.time()
+        ck_cli = os.path.join(work, "cli_ckpt")
+        argv = ("train", "--image-root", o["broad_images"], "--proxy-root",
+                o["broad_proxies"], "--target-root", o["broad"],
+                "--checkpoint-dir", ck_cli)
+        r1 = cli(*argv, "--epochs", "1")
+        r2 = cli(*argv, "--epochs", "2", "--resume")
+        with open(os.path.join(ck_cli, "latest", "meta.json")) as f:
+            meta = json.load(f)
+        for r in (r1, r2):
+            check(set(r[0]) == {"best_epoch", "best_val"}
+                  and all(np.isfinite(v) for v in r[0]["best_val"].values()),
+                  "train printed %s" % r[0])
+        check(meta["epoch"] == 2, "the resumed CLI run ended at epoch %s"
+              % meta["epoch"])
+        emit("cli_train", t, runs={"epochs_1": {"json": r1[0],
+                                                "wall_s": r1[1]},
+                                   "resume_epochs_2": {"json": r2[0],
+                                                       "wall_s": r2[1]}},
+             meta=meta, nvidia_smi=smi)
+        return {"selfsup_train": ss_k12}, {}, [case], []
 
     # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
     k3_launches_pn = {}
@@ -2879,6 +3366,21 @@ def main() -> int:
                       if isinstance(v, float)},
              record={k: pn_record[k] for k in PN_METRICS},
              record_rel_tol=RECORD_REL, nvidia_smi=smi)
+
+    work = tempfile.mkdtemp(prefix="_smoke_", dir=root)
+    _WORK_DIRS.append(work)
+    try:
+        for phases in (lambda: tree_phases(work),
+                       lambda: clip_phases(
+                           work, os.path.join(work, "rgb", "images")),
+                       lambda: train_phases(work)):
+            phases = phases()
+            k12_launches.update(phases[0])
+            k3_fit_launches.update(phases[1])
+            k12 += phases[2]
+            k3 += phases[3]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # == Texture, the attribute renders, the IUV proxies, relation =========
     from soccerplayershapepose_torch.convert import load_relation_weights

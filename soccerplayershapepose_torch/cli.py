@@ -13,6 +13,7 @@ the same ``<root>/<game>/<scene>/<player>/<view>`` trees:
     python -m soccerplayershapepose_torch crop-broad-player --frame-root ... --box-root ...
     python -m soccerplayershapepose_torch detect-players --frame-root ... --out-root ...
     python -m soccerplayershapepose_torch crop-player --image-root ... --out-root ...
+    python -m soccerplayershapepose_torch train --image-root ... --target-root ...
 
 Each stage runs on ``--device`` (default ``cuda``; it refuses to start
 where there is no card rather than fall back to the CPU; ``--device cpu``
@@ -20,8 +21,12 @@ runs the plain PyTorch path) and prints one JSON line last. The regressor
 is the committed ``weights/regressor*_f16.npz`` (the random seeded one if
 there is none), the detector ``weights/detector*_f16.npz`` at its measured
 best-F1 score threshold (the sibling ``.json``), the frame classifier the
-bundle given to ``harvest-frames --classifier-params``. The subcommands
-``train`` and ``train-perception`` are not ported yet.
+bundle given to ``harvest-frames --classifier-params``; ``--checkpoint``
+imports a reference ``.tar`` regressor instead (``io/torch_import.py``)
+and exits non-zero where the file does not exist. ``train`` runs the
+distillation trainer (``drivers/training.py``) and prints
+``{"best_epoch", "best_val"}``. The subcommand ``train-perception`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -49,8 +54,7 @@ def _add_fit_args(p: argparse.ArgumentParser):
     p.add_argument("--smpl-dir", default=None,
                    help="SMPL asset dir (synthetic model if absent)")
     p.add_argument("--checkpoint", default=None,
-                   help="reference straps .tar checkpoint to import (not "
-                        "supported yet: needs io/torch_import.py)")
+                   help="reference straps .tar checkpoint to import")
     p.add_argument("--conf-weight", action="store_true",
                    help="weight the joints2D fit loss by the keypoint "
                         "score channel of *_j2d.xml")
@@ -94,22 +98,23 @@ def _load_runtime(args):
         build_predictor, predict_smpl)
     from soccerplayershapepose_torch.smpl import load_assets
     from soccerplayershapepose_torch.utils.precision import default_device
-    if args.checkpoint:
+    if args.checkpoint and not os.path.exists(args.checkpoint):
         # Never carry on with other weights than the ones asked for.
-        if not os.path.exists(args.checkpoint):
-            raise SystemExit(f"--checkpoint {args.checkpoint}: no such file")
-        raise SystemExit(
-            f"--checkpoint {args.checkpoint}: importing a straps .tar "
-            "checkpoint needs io/torch_import.py, which the port does not "
-            "have yet")
+        raise SystemExit(f"--checkpoint {args.checkpoint}: no such file")
     dev = default_device(args.device)
     assets = load_assets(model_dir=args.smpl_dir, device=dev)
-    path = default_weights_path("regressor")
-    if path is None:
-        _, fn = build_predictor(device=dev)
-        return dev, assets, fn
-    model = load_regressor_weights(path, dev)
-    print(f"regressor weights: {path}")
+    if args.checkpoint:
+        from soccerplayershapepose_torch.io.torch_import import (
+            load_straps_checkpoint)
+        model = load_straps_checkpoint(args.checkpoint, device=dev)
+        print(f"regressor weights: {args.checkpoint}")
+    else:
+        path = default_weights_path("regressor")
+        if path is None:
+            _, fn = build_predictor(device=dev)
+            return dev, assets, fn
+        model = load_regressor_weights(path, dev)
+        print(f"regressor weights: {path}")
 
     def fn(assets_, silhouette, joints2d):
         return predict_smpl(model, assets_, silhouette, joints2d, device=dev)
@@ -206,6 +211,19 @@ def main(argv=None) -> int:
     p.add_argument("--root", required=True)
     p.add_argument("--score-thresh", type=float,
                    default=cfg.REFINE_SCORE_THRESH)
+
+    p = sub.add_parser("train")
+    p.add_argument("--image-root", required=True)
+    p.add_argument("--proxy-root", required=True)
+    p.add_argument("--target-root", required=True)
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--train-set", default=None,
+                   help="train_set.xml game split file")
+    p.add_argument("--epochs", type=int, default=cfg.REGRESSOR_TRAIN_EPOCHS)
+    p.add_argument("--lr", type=float, default=cfg.REGRESSOR_TRAIN_LR)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--smpl-dir", default=None)
+    _add_device_arg(p)
 
     p = sub.add_parser("create-proxy",
                        help="proxy extraction from raw crops on the card")
@@ -326,6 +344,25 @@ def main(argv=None) -> int:
     if args.command == "calc-metrics":
         from soccerplayershapepose_torch.io import calc_metrics
         print(json.dumps(calc_metrics(args.root, args.score_thresh)))
+        return 0
+
+    if args.command == "train":
+        from soccerplayershapepose_torch.drivers.training import (
+            read_train_split, train_regressor)
+        from soccerplayershapepose_torch.smpl import load_assets
+        from soccerplayershapepose_torch.utils.precision import \
+            default_device
+        dev = default_device(args.device)
+        assets = load_assets(model_dir=args.smpl_dir, device=dev)
+        split = read_train_split(args.train_set) if args.train_set else None
+        out = train_regressor(assets, args.image_root, args.proxy_root,
+                              args.target_root, args.checkpoint_dir,
+                              train_games=split, epochs=args.epochs,
+                              learning_rate=args.lr, resume=args.resume,
+                              device=dev)
+        print(json.dumps({"best_epoch": out["best_epoch"],
+                          "best_val": {k: float(v)
+                                       for k, v in out["best_val"].items()}}))
         return 0
 
     if args.command == "create-proxy":

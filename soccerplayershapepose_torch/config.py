@@ -38,6 +38,9 @@ SMPL_TO_KPRCNN_MAP = (24, 26, 25, 28, 27, 16, 17, 18, 19, 20, 21,
                       1, 2, 4, 5, 7, 8)
 ALL_JOINTS_TO_COCO_MAP = (24, 26, 25, 28, 27, 16, 17, 18, 19, 20, 21,
                           1, 2, 4, 5, 7, 8)
+ALL_JOINTS_TO_H36M_MAP = tuple(range(73, 90))
+H36M_TO_J17 = (6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9)
+H36M_TO_J14 = H36M_TO_J17[:14]
 NUM_KPRCNN_JOINTS = 17
 
 HEATMAP_STD = 4                 # Gaussian sigma in px; truncated at 2·sigma
@@ -53,6 +56,8 @@ MULTI_VIEW_ROUNDS = 3
 BROAD_VIEW_ITERS = 100
 BROAD_VIEW_LR = 0.01
 FITTING_LR = 0.001
+REGRESSOR_TRAIN_LR = 1e-4       # the distillation trainer's Adam
+REGRESSOR_TRAIN_EPOCHS = 10
 REFINE_SCORE_THRESH = 10.0      # px joint error gating human refinement
 FITTING_INIT_LOSS_WEIGHTS = {"joints2D": 1.0, "silhouette": 1000000.0}
 MAX_PLAYERS_PER_FRAME = 22

@@ -14,6 +14,13 @@ detector's (``weights/detector_256x448_f16.npz``) into
 (``weights/relation_v{0,1}.npz``) into :class:`PoseRelationModule` at run
 time. Nothing is written to disk but a
 classifier bundle, in the JAX package's layout, when one is saved.
+
+The other direction serves the trainers: the regressor's and the relation
+module's state back to flat flax names and layouts
+(:func:`regressor_flat_from_state_dict`, :func:`relation_flat_from_module`),
+which the checkpoints and the saved weights use, and a JAX ``TrainState``'s
+variables (as numpy) into the port's trainer state
+(:func:`train_state_from_jax`), so both packages can train from one point.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -306,14 +313,8 @@ def _flat_name(prefix: str, name: str):
         path = "Dense_%d" % int(parts[1])
     elif parts[0] == "fc":
         path = "Dense_0"
-    elif parts[:2] == ["encoder", "conv"]:
-        path = "ResNet_0/Conv_0"
-    elif parts[:2] == ["encoder", "norm"]:
-        path = "ResNet_0/BatchNorm_0"
-    else:       # encoder.blocks.i.{convs,norms}.j
-        kind = {"convs": "Conv", "norms": "BatchNorm"}[parts[3]]
-        path = "ResNet_0/BasicBlock_%d/%s_%d" % (int(parts[2]), kind,
-                                                 int(parts[4]))
+    else:       # encoder.conv, encoder.norm, encoder.blocks.i.*
+        path = _regressor_flax_path(mod, "BasicBlock")
     is_norm = "BatchNorm" in path
     flax_leaf = {"weight": "scale" if is_norm else "kernel", "bias": "bias",
                  "running_mean": "mean", "running_var": "var"}[leaf]
@@ -377,3 +378,125 @@ def load_relation_weights(path: str, device: DeviceLike = None
     _load_strict(model, relation_state_dict_from_flat(flat), path,
                  "the relation module")
     return model.to(dev).eval()
+
+
+# ---------------------------------------------------------------------------
+# The port's state → flat flax variables
+# ---------------------------------------------------------------------------
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
+    """Nested mappings of arrays (a flax variable tree, as numpy) → flat
+    ``a/b/c`` names, as the JAX package's checkpoints flatten them."""
+    flat = {}
+    for k, v in tree.items():
+        key = "%s/%s" % (prefix, k) if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten_tree(v, key))
+        else:
+            flat[key] = np.array(v)
+    return flat
+
+
+def _regressor_flax_path(mod: str, block: str) -> str:
+    """Inverse of :func:`_module_name`: a :class:`SingleInputRegressor`
+    submodule → its flax path (``encoder.blocks.3.convs.1`` →
+    ``ResNet_0/BasicBlock_3/Conv_1``, ``ief.fcs.2`` → ``IEFModule_0/
+    Dense_2``); ``block`` is ``BasicBlock`` or ``Bottleneck``."""
+    parts = mod.split(".")
+    if parts[0] == "ief":
+        return "IEFModule_0/Dense_%d" % int(parts[2])
+    if parts[1] == "conv":
+        return "ResNet_0/Conv_0"
+    if parts[1] == "norm":
+        return "ResNet_0/BatchNorm_0"
+    kind = {"convs": "Conv", "norms": "BatchNorm"}[parts[3]]
+    return "ResNet_0/%s_%d/%s_%d" % (block, int(parts[2]), kind,
+                                     int(parts[4]))
+
+
+def regressor_flax_name(name: str, resnet_layers: int = 18
+                        ) -> Optional[str]:
+    """A :class:`SingleInputRegressor` state-dict name → its flat flax
+    variable name (``encoder.blocks.3.norms.1.running_var`` →
+    ``batch_stats/ResNet_0/BasicBlock_3/BatchNorm_1/var``), or None for
+    BN's ``num_batches_tracked``."""
+    mod, leaf = name.rsplit(".", 1)
+    if leaf == "num_batches_tracked":
+        return None
+    path = _regressor_flax_path(
+        mod, "Bottleneck" if resnet_layers == 50 else "BasicBlock")
+    flax_leaf = {"weight": "scale" if "BatchNorm" in path else "kernel",
+                 "bias": "bias", "running_mean": "mean",
+                 "running_var": "var"}[leaf]
+    col = "batch_stats" if flax_leaf in ("mean", "var") else "params"
+    return "%s/%s/%s" % (col, path, flax_leaf)
+
+
+def to_flax_layout(a: np.ndarray) -> np.ndarray:
+    """A conv or dense weight → flax's kernel layout: OIHW → HWIO,
+    (out, in) → (in, out)."""
+    return np.ascontiguousarray(a.transpose(2, 3, 1, 0) if a.ndim == 4
+                                else a.T)
+
+
+def from_flax_layout(a: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`to_flax_layout`."""
+    return np.ascontiguousarray(a.transpose(3, 2, 0, 1) if a.ndim == 4
+                                else a.T)
+
+
+def regressor_flat_from_state_dict(sd: dict, resnet_layers: int = 18
+                                   ) -> dict:
+    """A :class:`SingleInputRegressor` state dict (or any subset of its
+    names) → flat flax variables (``params/ResNet_0/Conv_0/kernel``,
+    ``batch_stats/ResNet_0/BatchNorm_0/mean``, …) as fp32 numpy, in the
+    dict's order: the inverse of :func:`regressor_state_dict_from_flat`
+    (:func:`regressor_flax_name`, kernels :func:`to_flax_layout`)."""
+    flat = {}
+    for name, t in sd.items():
+        key = regressor_flax_name(name, resnet_layers)
+        if key is None:
+            continue
+        # A copy: on the CPU ``numpy()`` would share the live tensor.
+        a = t.detach().cpu().to(torch.float32).numpy().copy()
+        flat[key] = to_flax_layout(a) if key.endswith("/kernel") else a
+    return flat
+
+
+def relation_flat_from_module(module: PoseRelationModule) -> dict:
+    """A :class:`PoseRelationModule` → its flat flax params
+    (``params/WQ/kernel`` (in, H, dk), ``params/WG/kernel`` (G, H),
+    ``params/lift``/``proj_back`` (in, out)) as fp32 numpy: the inverse of
+    :func:`relation_state_dict_from_flat`."""
+    h, dk = module.n_relations, module.key_dim
+    flat = {}
+    for name, t in module.state_dict().items():
+        layer, leaf = name.rsplit(".", 1)
+        a = t.detach().cpu().to(torch.float32).numpy().copy()
+        heads = {"WQ": (h, dk), "WK": (h, dk), "WV": (h, dk), "WG": (h,)}
+        if leaf == "weight":
+            a = a.T
+            if layer in heads:
+                a = a.reshape((a.shape[0],) + heads[layer])
+            flat["params/%s/kernel" % layer] = np.ascontiguousarray(a)
+        else:
+            if layer in heads:
+                a = a.reshape(heads[layer])
+            flat["params/%s/bias" % layer] = np.ascontiguousarray(a)
+    return flat
+
+
+@torch.no_grad()
+def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
+                         log_vars: Mapping):
+    """Copy a JAX ``TrainState``'s ``params``, ``batch_stats`` and
+    ``log_vars`` (variable trees as numpy) into the port's trainer
+    ``state`` (``train/distill.py:TrainState``) in place: the regressor's
+    parameters and BN statistics and the criterion's log-variances. The
+    optimizer's moments are left as they are. Returns ``state``."""
+    flat = flatten_tree({"params": params, "batch_stats": batch_stats})
+    _load_strict(state.regressor, regressor_state_dict_from_flat(flat),
+                 "a JAX TrainState", "the regressor")
+    for k, v in log_vars.items():
+        state.log_vars[k].copy_(torch.as_tensor(np.array(v, np.float32)))
+    return state

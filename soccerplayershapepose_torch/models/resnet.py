@@ -5,7 +5,9 @@ conv7×7/2 (padding 3) → BN → ReLU → max-pool 3/2 (padding 1) → four sta
 → global average pool, giving a 512-d (ResNet-18) or 2048-d (ResNet-50)
 feature. Every 3×3 convolution pads 1 on each side, as the JAX modules'
 explicit ``padding=[(1, 1), (1, 1)]`` does; the 1×1 projections pad nothing.
-Batch norm uses eps 1e-5 (flax momentum 0.9 is PyTorch momentum 0.1).
+Batch norm uses eps 1e-5 (flax momentum 0.9 is PyTorch momentum 0.1). In
+train mode its running variance takes the biased batch variance, as flax's
+does (:class:`BatchNorm2d`); eval mode is ``nn.BatchNorm2d``'s own.
 
 Each block keeps its convolutions and norms in two lists in the flax
 modules' order (``Conv_0``, ``Conv_1``, … then the projection), so the
@@ -26,8 +28,29 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
-def _norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode update of the running
+    statistics: ``running ← 0.9·running + 0.1·batch`` with the BIASED batch
+    variance (PyTorch's own update takes the unbiased one, n/(n−1) larger,
+    14% at 2 rows of an 8 × 8 map). The batch is normalised by its biased
+    variance either way; eval mode is unchanged. ``num_batches_tracked``
+    stays 0, as flax keeps no such count (the momentum is fixed)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+def _norm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

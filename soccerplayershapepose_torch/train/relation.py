@@ -1,7 +1,7 @@
 """Held-out evaluation of the inter-player pose relation module.
 
-Counterpart of the inference half of
-``soccerplayershapepose_tpu/train/relation.py``: noisy-scene tuples from
+Counterpart of ``soccerplayershapepose_tpu/train/relation.py``: noisy-scene
+tuples from
 the scene factory (``train/scenes.py``: a shared team-action pose,
 ball-facing orientations, broadcast-frame boxes), each player's ground-truth
 rotmats perturbed per joint (a per-scene noise level plus heavy-tailed
@@ -9,19 +9,32 @@ outlier joints), a random number of real players per scene (the rest
 padded), and the module's denoising measured before and after: rotmat MSE,
 the mean per-joint geodesic angle and MPJPE through SMPL.
 
+The trainer (:func:`train_relation`) learns to refine the noisy rotmats
+with masked MSE to the ground truth over the 216 flattened entries, under
+Adam with ``optax.warmup_cosine_decay_schedule(0, lr, steps // 10, steps,
+0.05·lr)`` (:func:`warmup_cosine_decay`, evaluated at Adam's count before
+the step, so the first update has rate 0). v0 starts with its value
+projection ``WV`` zeroed, so the residual starts as the identity.
+
 Randomness is explicit, as in ``train/scenes.py``: a sampler draws into
 :class:`RelationDraws` and :func:`synth_relation_batch` is deterministic in
-those draws. The trainer waits for the training core.
+those draws; the trainer's initial weights and its batches come from two
+seeded CPU generators.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
+from soccerplayershapepose_torch.convert import (  # noqa: F401 (re-export)
+    load_relation_weights, relation_flat_from_module)
+from soccerplayershapepose_torch.models.init import flax_init_
 from soccerplayershapepose_torch.models.relation import PoseRelationModule
 from soccerplayershapepose_torch.ops.rotations import batch_rodrigues
 from soccerplayershapepose_torch.pipeline.predict import on_device
@@ -30,6 +43,7 @@ from soccerplayershapepose_torch.smpl.model import smpl_forward
 from soccerplayershapepose_torch.train.scenes import (
     OrientDraws, SceneDraws, orient_for_view, sample_orient_draws,
     sample_scene_draws, synth_scene_params)
+from soccerplayershapepose_torch.train.optim import Adam
 from soccerplayershapepose_torch.train.synth import (
     _normal, _uniform, draws_to)
 from soccerplayershapepose_torch.utils.precision import (
@@ -174,3 +188,129 @@ def evaluate_relation(relation: PoseRelationModule, assets: SMPLAssets,
     out = {k: v / len(draws) for k, v in sums.items()}
     out["n_scenes"] = int(sum(d.eps.shape[0] for d in draws))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def warmup_cosine_decay(init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule`` as a plain function of the
+    step count: linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then a cosine from ``peak_value`` to ``end_value``
+    over the remaining ``decay_steps − warmup_steps``, then flat."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - max(count, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(float(count - warmup_steps), float(span))
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / span))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+@dataclasses.dataclass
+class RelationTrainState:
+    relation: PoseRelationModule
+    opt: Adam
+    step: int = 0
+
+
+def new_relation(lift_dim: Optional[int] = None,
+                 gen: Optional[torch.Generator] = None,
+                 device: DeviceLike = None) -> PoseRelationModule:
+    """v0 (``lift_dim`` None) or v1 (:data:`V1_KWARGS`) drawn from flax's
+    initialisers with ``gen`` (a CPU generator; seed 0 if None), on
+    ``device`` (None: the CUDA card). v0's value projection ``WV`` is
+    zeroed, so its residual starts as the identity (refined == input)."""
+    dev = default_device(device)
+    relation = PoseRelationModule(**(V1_KWARGS if lift_dim else {}))
+    flax_init_(relation, gen or torch.Generator().manual_seed(0))
+    if lift_dim is None:
+        with torch.no_grad():
+            relation.WV.weight.zero_()
+            relation.WV.bias.zero_()
+    return relation.to(dev)
+
+
+def make_relation_state(relation: PoseRelationModule, steps: int,
+                        lr: float = 1e-3) -> RelationTrainState:
+    """Adam over ``relation``'s parameters with the warmup-cosine rate of a
+    ``steps``-step run."""
+    return RelationTrainState(relation, Adam(
+        list(relation.parameters()),
+        warmup_cosine_decay(0.0, lr, max(steps // 10, 1), steps, lr * 0.05)))
+
+
+def make_relation_train_step():
+    """``step(state, batch) → (state, {loss, input_mse})``: one Adam update
+    of the masked MSE between the refined and the ground-truth rotmats
+    (``input_mse``: the same for the noisy input)."""
+    def step(state: RelationTrainState, batch: dict):
+        relation = state.relation.train()
+        refined = relation(batch["rotmats_noisy"], batch["boxes"],
+                           batch["mask"])
+        m = batch["mask"][..., None, None, None]
+        denom = torch.clamp(batch["mask"].sum().to(torch.float32),
+                            min=1.0) * 216.0
+        loss = torch.sum(torch.where(m, refined - batch["rotmats_gt"],
+                                     0.0) ** 2) / denom
+        with torch.no_grad():
+            in_mse = torch.sum(torch.where(
+                m, batch["rotmats_noisy"] - batch["rotmats_gt"], 0.0)
+                ** 2) / denom
+        state.opt.zero_grad()
+        loss.backward()
+        state.opt.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), "input_mse": in_mse}
+    return step
+
+
+def train_relation(steps: int = 3000, b: int = 8, n_players: int = 6,
+                   lr: float = 1e-3, lift_dim: Optional[int] = None,
+                   seed: int = 0, log_every: int = 200,
+                   verbose: bool = True, device: DeviceLike = None,
+                   schedule_steps: Optional[int] = None):
+    """Train a relation module on synthetic correlated scenes on ``device``
+    (None: the CUDA card). ``lift_dim=1024`` selects v1
+    (:data:`V1_KWARGS`). The initial weights come from a CPU generator
+    seeded ``seed``, the batches (b scenes of ``n_players``) from one
+    seeded ``seed + 1``. ``schedule_steps`` (default ``steps``) sets the
+    learning-rate schedule's length, so a run can stop after the first
+    ``steps`` of a longer schedule. Returns (relation,
+    history of {step, loss, input_mse} every ``log_every`` steps and at
+    the last)."""
+    dev = default_device(device)
+    relation = new_relation(lift_dim, torch.Generator().manual_seed(seed),
+                            dev)
+    state = make_relation_state(relation, schedule_steps or steps, lr)
+    step_fn = make_relation_train_step()
+    data_gen = torch.Generator().manual_seed(seed + 1)
+    history = []
+    for i in range(steps):
+        batch = synth_relation_batch(
+            sample_relation_draws(data_gen, b, n_players), device=dev)
+        state, metrics = step_fn(state, batch)
+        if (i + 1) % log_every == 0 or i + 1 == steps:
+            rec = {"step": i + 1,
+                   **{k: float(v) for k, v in metrics.items()}}
+            history.append(rec)
+            if verbose:
+                print(f"relation step {rec['step']}: loss {rec['loss']:.5f} "
+                      f"(input {rec['input_mse']:.5f})", flush=True)
+    return state.relation.eval(), history
+
+
+def save_relation_weights(path: str, relation: PoseRelationModule) -> None:
+    """``relation``'s weights as the flat flax npz
+    (``params/WQ/kernel`` …) that :func:`load_relation_weights`
+    (``convert.load_relation_weights``) and the JAX package's
+    ``load_relation_weights`` read."""
+    np.savez(path, **relation_flat_from_module(relation))

@@ -38,6 +38,8 @@ import torch
 from torch.nn import functional as F
 
 from soccerplayershapepose_torch import config as cfg
+from soccerplayershapepose_torch.convert import (  # noqa: F401 (re-export)
+    load_regressor_weights, regressor_flat_from_state_dict)
 from soccerplayershapepose_torch.fit.engine import FitConfig, FitInit
 from soccerplayershapepose_torch.fit.single_view import single_view_fit
 from soccerplayershapepose_torch.models.ief import default_initial_params
@@ -536,3 +538,20 @@ def expand_regressor_channels(src_path: str, dst_path: str,
         raise ValueError(proxy_channels)
     flat[key] = new
     np.savez(dst_path, **flat)
+
+
+def save_regressor_weights(path: str, regressor: SingleInputRegressor,
+                           dtype=None, compress: bool = False) -> None:
+    """The regressor's inference weights (parameters and BN statistics) as
+    the flat flax npz (``params/ResNet_0/Conv_0/kernel`` HWIO, …) that
+    ``convert.load_regressor_weights`` and the JAX package both read.
+    ``dtype`` (e.g. ``np.float16``) casts the fp32 arrays; ``compress``
+    writes ``np.savez_compressed``. The reader is
+    :func:`load_regressor_weights` (``convert.load_regressor_weights``)."""
+    flat = regressor_flat_from_state_dict(regressor.state_dict(),
+                                          regressor.resnet_layers)
+    if dtype is not None:
+        flat = {k: v.astype(dtype) if v.dtype == np.float32 else v
+                for k, v in flat.items()}
+    (np.savez_compressed if compress else np.savez)(path, **flat)
+

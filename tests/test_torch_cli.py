@@ -14,9 +14,13 @@ tests/test_torch_package.py): ``calc-metrics`` prints the JSON of JAX's
 tree (one player, two views, 512² proxies, joints-only, 2 iterations)
 prints the JSON of the in-process ``single_view_optimization`` with the
 same configuration, and writes the same files; a usage error, a
-``--checkpoint`` (the import needs ``io/torch_import.py``, not ported) and
-the default ``--device cuda`` without a card exit non-zero and print no
-result.
+``--checkpoint`` that is no checkpoint (the import,
+``io/torch_import.py``, refuses it) or no file, and the default
+``--device cuda`` without a card exit non-zero and print no result.
+``--checkpoint`` on a reference-named ``.tar`` predicts what the
+in-process stage predicts from the imported regressor (the same files,
+byte for byte); ``train --device cpu`` on a tiny tree prints its JSON line,
+and ``--resume`` continues the epoch counter.
 """
 
 import json
@@ -117,7 +121,9 @@ def test_cli_usage_error():
     out = run_cli("single-view")
     assert out.returncode != 0
     assert "--image-root" in out.stderr
-    out = run_cli("train")                 # not ported yet
+    out = run_cli("train")
+    assert out.returncode != 0 and "--image-root" in out.stderr
+    out = run_cli("train-perception")      # not ported yet
     assert out.returncode != 0 and "invalid choice" in out.stderr
 
 
@@ -158,6 +164,7 @@ def test_cli_refuses_a_checkpoint_and_a_missing_card(tmp_path, tiny_tree):
     out = run_cli("predict", *common, "--device", "cpu",
                   "--checkpoint", str(ckpt))
     assert out.returncode != 0 and "io/torch_import.py" in out.stderr
+    assert '"views"' not in out.stdout
     out = run_cli("predict", *common, "--device", "cpu",
                   "--checkpoint", str(tmp_path / "missing.tar"))
     assert out.returncode != 0 and "no such file" in out.stderr
@@ -198,3 +205,48 @@ def test_cli_front_end_refuses_a_missing_card(tmp_path, name):
     assert out.returncode != 0 and "CUDA" in out.stderr
     assert not out.stdout.strip().startswith("{")
     assert not (tmp_path / "out").exists()
+
+
+def test_cli_predict_with_a_reference_checkpoint(tmp_path, tiny_tree):
+    from soccerplayershapepose_torch.io.torch_import import (
+        load_straps_checkpoint)
+    from test_torch_torch_import import reference_regressor_state_dict
+    ckpt = str(tmp_path / "straps.tar")
+    torch.save({"best_model_state_dict": reference_regressor_state_dict(3)},
+               ckpt)
+    common = ["--image-root", str(tiny_tree / "images"),
+              "--proxy-root", str(tiny_tree / "proxies")]
+    out = run_cli("predict", *common, "--result-root", str(tmp_path / "cli"),
+                  "--device", "cpu", "--checkpoint", ckpt)
+    assert last_json(out) == {"views": 2}
+    assert "regressor weights: " + ckpt in out.stdout
+    model = load_straps_checkpoint(ckpt, device="cpu")
+    tst.predict_stage(synthesize_assets(), str(tiny_tree / "proxies"),
+                      str(tiny_tree / "images"), str(tmp_path / "lib"),
+                      regressor_fn=lambda a, s, j: predict_smpl(
+                          model, a, s, j, device="cpu"), device="cpu")
+    files = tree_files(tmp_path / "cli")
+    assert files == tree_files(tmp_path / "lib") and len(files) == 2
+    for f in files:
+        with open(tmp_path / "cli" / f, "rb") as a, \
+                open(tmp_path / "lib" / f, "rb") as b:
+            assert a.read() == b.read(), f
+
+
+def test_cli_train_on_cpu_and_resume(tmp_path):
+    from test_training_driver import _dataset
+    image_root, proxy_root, target_root = _dataset(tmp_path)
+    argv = ["train", "--image-root", image_root, "--proxy-root", proxy_root,
+            "--target-root", target_root, "--checkpoint-dir",
+            str(tmp_path / "ckpt")]
+    out = run_cli(*argv, cuda_visible="")
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert not (tmp_path / "ckpt").exists()
+    argv += ["--device", "cpu"]
+    got = last_json(run_cli(*argv, "--epochs", "1"))
+    assert got["best_epoch"] == 1
+    assert set(got["best_val"]) == {"pves_pa", "mpjpes_pa"}
+    got = last_json(run_cli(*argv, "--epochs", "2", "--resume"))
+    assert set(got) == {"best_epoch", "best_val"}
+    with open(tmp_path / "ckpt" / "latest" / "meta.json") as f:
+        assert json.load(f)["epoch"] == 2
