@@ -85,7 +85,29 @@ call and drives the port's two paths on the card:
   within 25% of the records', one scene held to the CPU; the relation
   trainer (v0, the record's settings, the first 300 steps of its
   3000-step schedule, the first 3 held to the CPU); and the command
-  line's ``train`` and ``train --resume`` as subprocesses.
+  line's ``train`` and ``train --resume`` as subprocesses;
+* then perception training and the baselines: ProxyNet's trainer
+  (``train/perception.py``, 8 crops of 256^2 with an occluder each: K3 at
+  256^2 and 64^2 inside every step) for 20 steps from flax's initialisers
+  (the loss must fall; the first step on the card held to the CPU's), and
+  warm from ``weights/proxynet_256_f16.npz`` for 4 steps at lr 1e-5, saved
+  f16-packed, reloaded and evaluated at its record's setting (64 crops of
+  256^2, +-25% of ``weights/proxynet_256_f16.json``); the detector's (4
+  frames of 256 x 448 with 6 players: K3 at 448^2, B = 4) for 12 steps
+  and warm from ``weights/detector_256x448_f16.npz``, evaluated as
+  ``detector_eval`` is; the frame classifier's head
+  (``train_classifier``) on the committed feature net's features of 64
+  ``build_dataset`` frames, its first epoch held to the CPU's; real-proxy
+  batches (``train/real_data.py``) from the create-proxy scene mixed with
+  synthetic ones, each real batch equal to the CPU loader's; one
+  extracted batch (16 crops of 256^2 through ProxyNet and the extractor)
+  and a distillation step on it; the baseline evaluations
+  (``drivers/baselines.py``) of the committed regressor's predictions on
+  the mint tree's first scene, written as HMR ``.npy`` and SPIN ``.npz``
+  files: single-view, cross-view and multi-view fits at their defaults and
+  512^2 (K1/K2 at the players' and the views' rows), the IoU rising and
+  the joint error falling, one player held to the CPU; and the command
+  line's ``train-perception`` for both nets as subprocesses.
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -106,6 +128,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import faulthandler
 import json
@@ -118,11 +141,12 @@ import tempfile
 import time
 from collections import Counter
 
-# The wall-clock budget. With the training phases the same checks took 659
+# The wall-clock budget. With the regressor's trainers the checks took 659
 # s on one host of the card and 882 s before their last phase on another
-# (the host-bound phases move 40-60% from host to host); 1080 s keeps a
-# slow host's run inside it and leaves the 1200 s a run may take room for
-# the start-up.
+# (the host-bound phases move 40-60% from host to host); with the
+# perception trainers and the baselines (about 75 s more) 779-825 s on
+# hosts like the first. 1080 s keeps a slow host's run inside it and
+# leaves the 1200 s a run may take room for the start-up.
 BUDGET_S = 1080
 DEVICE = "cuda"
 # (batch, render size, sigma): the fit's sigma, and the self-supervised
@@ -396,6 +420,42 @@ RELATE_SE = 5.84
 REL_TRAIN_STEPS, REL_TRAIN_SCHEDULE, REL_TRAIN_SEED = 300, 3000, 0
 REL_TRAIN_LOSS_REL = 1e-4  # first 3 steps, card vs CPU
 # cli_train: the train subcommand on the 1-scene tree, 1 epoch + resume.
+# proxynet_train / detector_train: the perception trainers at the CLI's
+# defaults (8 crops of 256^2 with occluders and IUV; 4 frames of 256 x 448
+# with 6 players), lr 1e-3, from flax's initialisers (the records trained
+# thousands of steps; PT_STEPS / DT_STEPS here), and warm from the
+# committed weights for WARM_STEPS at WARM_LR, then evaluated against
+# their records. The first step on the card is held to the CPU's from the
+# same net and batch.
+PT_SEED, PT_STEPS, PT_BATCH, PT_WH, PT_LR = 91_000_000, 20, 8, 256, 1e-3
+DT_SEED, DT_STEPS, DT_BATCH, DT_HW, DT_PLAYERS = (92_000_000, 12, 4,
+                                                  (256, 448), 6)
+WARM_STEPS, WARM_LR = 4, 1e-5
+PT_LOSS_REL = 1e-4        # first step's losses, card vs CPU
+PT_STATS_REL = 1e-4       # its BN running statistics
+PT_FLIP_SHARE = 0.01      # parameters apart by Adam's sign flips (<= 2 lr)
+K3_TRAIN_PLAIN_B = 1      # images of the plain K3 at the training shapes
+# classifier_train: the head on the committed feature net's features of
+# build_dataset frames (the record: 384 + 96 frames, in PERF.md).
+CLS_TRAIN_FRAMES, CLS_TRAIN_EPOCHS, CLS_TRAIN_SEED = 64, 10, 3
+CLS_TRAIN_TOL = 1e-4      # first epoch's head and loss, card vs CPU
+# real_data_train: the create-proxy scene's crops and proxies mixed with
+# synthetic crops, warm ProxyNet steps.
+RD_SEED, RD_BATCH, RD_STEPS, RD_P_REAL = 93_000_000, 8, 4, 0.5
+# extracted_train: one extracted batch of the e2e shape, one distillation
+# step on it.
+EX_SEED, EX_B, EX_WH = 94_000_000, 16, 256
+# baselines: the committed regressor's predictions on the mint tree's
+# first scene as HMR / SPIN files, fitted at the stages' defaults.
+BASE_HMR_TOL = 1e-4       # body joints through axis-angle and back
+# One player's short joints-only fit, card vs CPU (the CPU's dense 32^2
+# silhouette costs ~20 s a player here; K1/K2 are held to their plain
+# versions at the baselines' rows below).
+BASE_CPU_KNOBS = dict(iters=3, lr=1e-3, use_silhouette=False,
+                      silhouette_metrics=False)
+BASE_CPU_TOL = 1e-4
+BASE_K12_PLAIN_B = 1
+CLI_PT_STEPS = 2          # train-perception's steps per subprocess
 
 _T0 = time.time()
 # What a run started and must stop or remove if the budget cuts it off:
@@ -622,7 +682,25 @@ def main() -> int:
         from soccerplayershapepose_torch.drivers import training
         from soccerplayershapepose_torch.train import distill, selfsup
         from soccerplayershapepose_torch.train import relation as rel_train
-    except ImportError as e:
+        from soccerplayershapepose_torch.train import perception as ptrain
+        from soccerplayershapepose_torch.train import real_data
+        from soccerplayershapepose_torch.drivers import baselines
+        from soccerplayershapepose_torch.ops import rotmat_to_axis_angle
+        from soccerplayershapepose_torch.convert import (
+            load_classifier_weights)
+        from soccerplayershapepose_torch.models.classifier import (
+            ClassifyNet)
+        from soccerplayershapepose_torch.models.init import flax_init_
+        from soccerplayershapepose_torch.pipeline.classification import (
+            train_classifier)
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "train_classifier_torch", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "scripts",
+                "train_classifier_torch.py"))
+        cls_script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cls_script)
+    except (ImportError, FileNotFoundError) as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
         return 2
@@ -887,7 +965,9 @@ def main() -> int:
         k_ms, k_out, plain_ms, plain_out, evaluated = {}, {}, {}, {}, {}
         for k in launch:
             k_ms[k], k_out[k] = time_ms(launch[k], 20)
-            plain_ms[k], plain_out[k] = time_ms(plain[k], 1, warmup=1)
+            # One call of the plain version: at seconds a call, a warm-up
+            # call would double its cost and move its time by noise only.
+            plain_ms[k], plain_out[k] = time_ms(plain[k], 1, warmup=0)
             evaluated[k] = pairs_evaluated(launch[k])
         # The kernels against their plain versions at the path's shape.
         max_abs = {k: float((k_out[k][:pb] - plain_out[k]).abs().max())
@@ -3316,6 +3396,533 @@ def main() -> int:
              meta=meta, nvidia_smi=smi)
         return {"selfsup_train": ss_k12}, {}, [case], []
 
+    def perception_phases(work: str):
+        """The perception trainers, the extracted batches and the baseline
+        evaluations, on the trees under ``work`` (the mint tree and the RGB
+        create-proxy scene): returns the K1/K2 and K3 launches by path and
+        the new K1/K2 and K3 shapes."""
+        k12_paths, k3_paths, k12_new, k3_new = {}, {}, [], []
+        tree = os.path.join(work, "mint")
+        rgb_images = os.path.join(work, "rgb", "images")
+        rgb_proxies = os.path.join(work, "rgb", "proxynet")
+        tmp = os.path.join(work, "perception")
+        os.makedirs(tmp)
+
+        def first_step_gap(net_cpu, batch_gpu, step_factory):
+            """One step of the same net (copied to the card) on the same
+            batch, card against CPU: (loss rel gaps, BN statistics rel gap,
+            parameter flips, parameters, first-step wall s on the card)."""
+            net_gpu = copy.deepcopy(net_cpu).to(dev)
+            states = {}
+            losses = {}
+            for where, net in (("cpu", net_cpu), ("card", net_gpu)):
+                d_ = torch.device("cpu") if where == "cpu" else dev
+                st = ptrain.make_perception_state(net, PT_LR)
+                b_ = {k: v.to(d_) for k, v in batch_gpu.items()}
+                t0 = time.time()
+                _, losses[where] = step_factory()(st, b_)
+                if where == "card":
+                    torch.cuda.synchronize()
+                states[where] = (st, time.time() - t0)
+            loss_rel = {k: abs(float(losses["card"][k]) - float(v))
+                        / max(abs(float(v)), 1e-12)
+                        for k, v in losses["cpu"].items()}
+            sd_c = states["cpu"][0].model.state_dict()
+            sd_g = states["card"][0].model.state_dict()
+            stats_rel, flips, total = 0.0, 0, 0
+            for k, v in sd_c.items():
+                g = sd_g[k].cpu()
+                if "running_" in k:
+                    stats_rel = max(stats_rel, float((g - v).abs().max())
+                                    / max(float(v.abs().max()), 1e-12))
+                elif v.is_floating_point():
+                    gap = (g - v).abs()
+                    check(bool((gap <= 2 * PT_LR + 1e-6).all()),
+                          "%s moved apart by %.3g in one step"
+                          % (k, float(gap.max())))
+                    flips += int((gap > 1e-6).sum())
+                    total += gap.numel()
+            check(max(loss_rel.values()) <= PT_LOSS_REL
+                  and stats_rel <= PT_STATS_REL
+                  and flips <= PT_FLIP_SHARE * total,
+                  "the first step on the card vs the CPU: losses %s, BN "
+                  "statistics %.3g, %d of %d parameters apart"
+                  % (loss_rel, stats_rel, flips, total))
+            return {"loss_rel": loss_rel, "bn_stats_rel": stats_rel,
+                    "adam_sign_flips": flips, "params": total,
+                    "card_first_step_s": round(states["card"][1], 4),
+                    "cpu_step_s": round(states["cpu"][1], 4)}
+
+        def curve(history):
+            return [float(h["total"]) for h in history]
+
+        def falls(totals, what):
+            check(np.isfinite(totals).all()
+                  and np.mean(totals[-3:]) < np.mean(totals[:3]),
+                  "%s: the loss does not fall: %s" % (what, totals))
+
+        # -- proxynet_train: ProxyNet on the crop factory, K3 in each step --
+        t = time.time()
+        gen = torch.Generator().manual_seed(PT_SEED)
+        pdraws = synth.sample_crop_draws(gen, PT_BATCH, image_wh=PT_WH)
+        pbatch = synth.render_crop_batch(assets, pdraws, PT_WH,
+                                         with_image=True)
+        parity = first_step_gap(
+            ptrain.new_proxynet(gen=torch.Generator().manual_seed(PT_SEED),
+                                device="cpu"),
+            pbatch, ptrain.make_proxynet_train_step)
+        kw = dict(batch=PT_BATCH, wh=PT_WH, log_every=0, device=dev)
+        ptrain.train_proxynet_synth(assets, steps=1, seed=PT_SEED, **kw)
+        pt_times = {}
+        cold, cold_s, _, cold_k3 = counted(lambda: ptrain.train_proxynet_synth(
+            assets, steps=PT_STEPS, learning_rate=PT_LR, seed=PT_SEED,
+            stage_times=pt_times, **kw))
+        check(cold_k3 == 2 * PT_STEPS, "ProxyNet training launched K3 %d "
+              "times in %d steps" % (cold_k3, PT_STEPS))
+        cold_curve = curve(cold.history)
+        falls(cold_curve, "ProxyNet from flax's initialisers")
+        # Warm: the committed weights, a few steps at a small lr, saved
+        # f16-packed, reloaded and evaluated as their record was.
+        warm, warm_s, _, _ = counted(lambda: ptrain.train_proxynet_synth(
+            assets, steps=WARM_STEPS, learning_rate=WARM_LR,
+            seed=PT_SEED + 1, init_weights=os.path.join(root,
+                                                        PN_WEIGHTS[256]),
+            **kw))
+        pn_path = os.path.join(tmp, "proxynet_warm_f16.npz")
+        ptrain.save_perception_weights(pn_path, warm.model, dtype=np.float16,
+                                       compress=True)
+        pn_back = load_proxynet_weights(pn_path, dev)
+        res_pw = quality.evaluate_proxynet(
+            ProxyExtractor(pn_back, wh=PT_WH, device=dev), assets,
+            n_batches=PN_BATCHES, batch=PN_BATCH, wh=PT_WH)
+        with open(os.path.join(root, PN_RECORDS[256])) as f:
+            pn_record = json.load(f)
+        for k in PN_METRICS:
+            check(abs(res_pw[k] - pn_record[k]) <= RECORD_REL * pn_record[k],
+                  "warm-started ProxyNet %s %.4f is not within %d%% of the "
+                  "record %.4f" % (k, res_pw[k], RECORD_REL * 100,
+                                   pn_record[k]))
+        pscn = synth.crop_scene(assets, synth.draws_to(pdraws, dev), PT_WH)
+        k3_pt = [dict(k3_case(pscn, PT_BATCH, wh_, scale, K3_TRAIN_PLAIN_B),
+                      path="proxynet_train")
+                 for wh_, scale in ((PT_WH, 1.0), (PT_WH // 4, 0.25))]
+        k3_new += k3_pt
+        k3_paths["proxynet_train"] = cold_k3
+        step_ms = (pt_times["synthesis"] + pt_times["step"]) / PT_STEPS * 1e3
+        emit("proxynet_train", t, batch=PT_BATCH, wh=PT_WH, iuv=True,
+             lr=PT_LR, seed=PT_SEED, steps=PT_STEPS,
+             first_step_card_vs_cpu=parity, loss=cold_curve,
+             wall_s=round(cold_s, 4), ms_per_step=round(step_ms, 3),
+             steps_per_s=round(1e3 / step_ms, 3),
+             synthesis_share=round(pt_times["synthesis"]
+                                   / (pt_times["synthesis"]
+                                      + pt_times["step"]), 4),
+             k3_share=round(sum(r["ms"] for r in k3_pt) / step_ms, 4),
+             stage_s_synchronised={k: round(v, 4)
+                                   for k, v in pt_times.items()},
+             k3_launches=cold_k3, k3=[{k: r[k] for k in (
+                 "b", "wh", "ms", "bound_ms", "plain_ms", "plain_b")}
+                 for r in k3_pt],
+             warm={"init": PN_WEIGHTS[256], "steps": WARM_STEPS,
+                   "lr": WARM_LR, "wall_s": round(warm_s, 4),
+                   "loss": curve(warm.history), "saved": "f16, compressed",
+                   "metrics": {k: res_pw[k] for k in PN_METRICS},
+                   "record": {k: pn_record[k] for k in PN_METRICS},
+                   "record_rel_tol": RECORD_REL},
+             nvidia_smi=smi)
+
+        # -- detector_train: the detector on synthetic frames ---------------
+        t = time.time()
+        gen = torch.Generator().manual_seed(DT_SEED)
+        fdraws = synth.sample_frame_draws(gen, DT_BATCH, DT_PLAYERS, DT_HW)
+        fbatch = synth.render_frame_batch(assets, fdraws, DT_HW)
+        dparity = first_step_gap(
+            ptrain.new_detector(gen=torch.Generator().manual_seed(DT_SEED),
+                                device="cpu"),
+            fbatch, ptrain.make_detector_train_step)
+        kw = dict(batch=DT_BATCH, hw=DT_HW, n_players=DT_PLAYERS,
+                  log_every=0, device=dev)
+        ptrain.train_detector_synth(assets, steps=1, seed=DT_SEED, **kw)
+        dt_times = {}
+        dcold, dcold_s, _, dcold_k3 = counted(
+            lambda: ptrain.train_detector_synth(
+                assets, steps=DT_STEPS, learning_rate=PT_LR, seed=DT_SEED,
+                stage_times=dt_times, **kw))
+        check(dcold_k3 == DT_STEPS, "detector training launched K3 %d times "
+              "in %d steps" % (dcold_k3, DT_STEPS))
+        dcurve = curve(dcold.history)
+        falls(dcurve, "the detector from flax's initialisers")
+        dwarm, dwarm_s, _, _ = counted(lambda: ptrain.train_detector_synth(
+            assets, steps=WARM_STEPS, learning_rate=WARM_LR,
+            seed=DT_SEED + 1, init_weights=os.path.join(root, DET_WEIGHTS),
+            **kw))
+        det_path = os.path.join(tmp, "detector_warm_f16.npz")
+        ptrain.save_perception_weights(det_path, dwarm.model,
+                                       dtype=np.float16, compress=True)
+        res_dw = quality.evaluate_detector(
+            load_detector_weights(det_path, dev), assets,
+            n_batches=DET_BATCHES, batch=DET_BATCH, hw=DET_HW,
+            n_players=DET_PLAYERS, device=dev)
+        for k in DET_METRICS:
+            check(abs(res_dw[k] - det_record[k]) <= RECORD_REL * det_record[k],
+                  "warm-started detector %s %.4f is not within %d%% of the "
+                  "record %.4f" % (k, res_dw[k], RECORD_REL * 100,
+                                   det_record[k]))
+        fscn = synth.frame_scene(assets, fdraws, DT_HW)
+        k3_dt = dict(k3_case(fscn, DT_BATCH, fscn["wh"], 1.0,
+                             K3_TRAIN_PLAIN_B), path="detector_train")
+        k3_new.append(k3_dt)
+        k3_paths["detector_train"] = dcold_k3
+        dstep_ms = (dt_times["synthesis"] + dt_times["step"]) / DT_STEPS * 1e3
+        emit("detector_train", t, batch=DT_BATCH, hw=list(DT_HW),
+             players=DT_PLAYERS, lr=PT_LR, seed=DT_SEED, steps=DT_STEPS,
+             min_visible_fill=ptrain.MIN_VISIBLE_FILL,
+             first_step_card_vs_cpu=dparity, loss=dcurve,
+             wall_s=round(dcold_s, 4), ms_per_step=round(dstep_ms, 3),
+             steps_per_s=round(1e3 / dstep_ms, 3),
+             synthesis_share=round(dt_times["synthesis"]
+                                   / (dt_times["synthesis"]
+                                      + dt_times["step"]), 4),
+             k3_share=round(k3_dt["ms"] / dstep_ms, 4),
+             stage_s_synchronised={k: round(v, 4)
+                                   for k, v in dt_times.items()},
+             k3_launches=dcold_k3, k3={k: k3_dt[k] for k in (
+                 "b", "wh", "faces", "ms", "bound_ms", "plain_ms",
+                 "plain_b")},
+             warm={"init": DET_WEIGHTS, "steps": WARM_STEPS, "lr": WARM_LR,
+                   "wall_s": round(dwarm_s, 4), "loss": curve(dwarm.history),
+                   "saved": "f16, compressed",
+                   "metrics": {k: res_dw[k] for k in DET_METRICS},
+                   "record": {k: det_record[k] for k in DET_METRICS},
+                   "record_rel_tol": RECORD_REL},
+             nvidia_smi=smi)
+
+        # -- classifier_train: the frame classifier's head -------------------
+        t = time.time()
+        (images, labels), ds_s, _, ds_k3 = counted(
+            lambda: cls_script.build_dataset(assets, CLS_TRAIN_FRAMES,
+                                             CLS_TRAIN_SEED, device=dev))
+        _, feat_net = load_classifier_weights(os.path.join(root,
+                                                           CLS_WEIGHTS), dev)
+        feats, ft_s, _, _ = counted(lambda: cls_script.featurize(
+            feat_net, images, dev))
+        head0 = flax_init_(ClassifyNet(),
+                           torch.Generator().manual_seed(CLS_TRAIN_SEED))
+        first = {}
+        for where in ("cpu", dev):
+            head, hist = train_classifier(
+                feats, labels, epochs=1, seed=CLS_TRAIN_SEED,
+                head=copy.deepcopy(head0), device=where)
+            first[str(where)] = (hist, {k: v.cpu() for k, v in
+                                        head.state_dict().items()})
+        cls_gap = max(float((first[str(dev)][1][k] - v).abs().max())
+                      for k, v in first["cpu"][1].items())
+        loss_gap = abs(first[str(dev)][0]["train_loss"][0]
+                       - first["cpu"][0]["train_loss"][0])
+        check(cls_gap <= CLS_TRAIN_TOL and loss_gap <= CLS_TRAIN_TOL
+              and first[str(dev)][0]["val_acc"] == first["cpu"][0]["val_acc"],
+              "the classifier's first epoch on the card vs the CPU: head %.3g,"
+              " loss %.3g, val_acc %s / %s" % (
+                  cls_gap, loss_gap, first[str(dev)][0]["val_acc"],
+                  first["cpu"][0]["val_acc"]))
+        (head, hist), tr_s, _, _ = counted(lambda: train_classifier(
+            feats, labels, epochs=CLS_TRAIN_EPOCHS, seed=CLS_TRAIN_SEED,
+            head=copy.deepcopy(head0), device=dev))
+        check(np.isfinite(hist["train_loss"]).all()
+              and hist["train_loss"][-1] < hist["train_loss"][0],
+              "the classifier's loss does not fall: %s" % hist)
+        k3_paths["classifier_dataset"] = ds_k3
+        emit("classifier_train", t, frames=CLS_TRAIN_FRAMES,
+             main_camera=int(labels.sum()), seed=CLS_TRAIN_SEED,
+             features=CLS_WEIGHTS, epochs=CLS_TRAIN_EPOCHS,
+             dataset_s=round(ds_s, 4), featurize_s=round(ft_s, 4),
+             train_s=round(tr_s, 4),
+             ms_per_epoch=round(tr_s / CLS_TRAIN_EPOCHS * 1e3, 3),
+             first_epoch_card_vs_cpu={"head_max_abs": cls_gap,
+                                      "loss_abs": loss_gap,
+                                      "tol": CLS_TRAIN_TOL},
+             train_loss=hist["train_loss"], val_acc=hist["val_acc"],
+             k3_launches=ds_k3, record_run="scripts/train_classifier_torch.py"
+             " (PERF.md)", nvidia_smi=smi)
+
+        # -- real_data_train: the create-proxy scene as training crops -------
+        t = time.time()
+        recs = real_data.collect_proxy_examples(rgb_images, rgb_proxies)
+        check(len(recs) > 0, "the create-proxy scene holds no example")
+        rd_gen = torch.Generator().manual_seed(RD_SEED)
+
+        def synth_fn(step):
+            return synth.render_crop_batch(
+                assets, synth.sample_crop_draws(rd_gen, RD_BATCH,
+                                                image_wh=PT_WH), PT_WH,
+                with_image=True)
+
+        mix = real_data.mixed_batches(synth_fn, real_data.proxy_tree_batches(
+            rgb_images, rgb_proxies, RD_BATCH, PT_WH, seed=RD_SEED),
+            p_real=RD_P_REAL, seed=RD_SEED)
+        cpu_mix = real_data.mixed_batches(
+            lambda step: None, real_data.proxy_tree_batches(
+                rgb_images, rgb_proxies, RD_BATCH, PT_WH, seed=RD_SEED),
+            p_real=RD_P_REAL, seed=RD_SEED)
+        rd_state = ptrain.make_perception_state(
+            load_proxynet_weights(os.path.join(root, PN_WEIGHTS[256]), dev),
+            WARM_LR)
+        rd_step = ptrain.make_proxynet_train_step()
+        sources, rd_losses = [], []
+
+        def real_steps():
+            for _ in range(RD_STEPS):
+                b_ = next(mix)
+                want = next(cpu_mix)
+                real = isinstance(b_["image"], np.ndarray)
+                check(real == (want is not None), "the card's mix and the "
+                      "CPU's pick different sources")
+                if real:
+                    b_ = {k: torch.from_numpy(v).to(dev)
+                          for k, v in b_.items()}
+                    check(all(np.array_equal(b_[k].cpu().numpy(), v)
+                              for k, v in want.items()),
+                          "a real batch on the card differs from the CPU's")
+                sources.append("real" if real else "synth")
+                _, m = rd_step(rd_state, b_)
+                rd_losses.append({k: float(v) for k, v in m.items()})
+
+        _, rd_s, _, rd_k3 = counted(real_steps)
+        check(all(np.isfinite(list(m.values())).all() for m in rd_losses),
+              "a mixed-batch step's losses are not finite: %s" % rd_losses)
+        check(rd_k3 == 2 * sources.count("synth"),
+              "the mixed steps launched K3 %d times for %d synthetic batches"
+              % (rd_k3, sources.count("synth")))
+        k3_paths["real_data_train"] = rd_k3
+        emit("real_data_train", t, examples=len(recs),
+             with_iuv=sum("iuv" in r for r in recs), batch=RD_BATCH,
+             wh=PT_WH, p_real=RD_P_REAL, seed=RD_SEED, steps=RD_STEPS,
+             sources=sources, losses=rd_losses, wall_s=round(rd_s, 4),
+             init=PN_WEIGHTS[256], lr=WARM_LR, k3_launches=rd_k3,
+             nvidia_smi=smi)
+
+        # -- extracted_train: extracted proxies, then a distillation step ----
+        t = time.time()
+        pn_ex = ProxyExtractor(pn_nets[256], wh=EX_WH, device=dev)
+        failed = []
+
+        class CountingExtractor:
+            device = pn_ex.device
+
+            def __call__(self, images_u8):
+                out = pn_ex(images_u8)
+                failed.append(sum(r[0] is None for r in out))
+                return out
+
+        xdraws = straps.sample_extracted_draws(
+            torch.Generator().manual_seed(EX_SEED), EX_B, EX_WH,
+            image_gen=torch.Generator(device=dev).manual_seed(EX_SEED))
+        straps.extracted_regressor_batch(assets, CountingExtractor(), xdraws,
+                                         wh=EX_WH, return_raw=True)
+        raw, ex_s, _, ex_k3 = counted(lambda: straps.extracted_regressor_batch(
+            assets, CountingExtractor(), xdraws, wh=EX_WH, return_raw=True))
+        check(ex_k3 == 2, "the extracted batch launched K3 %d times" % ex_k3)
+        xbatch, asm_s, _, _ = counted(lambda: straps.assemble_extracted_batch(
+            raw, EX_WH, device=dev))
+        check(tuple(xbatch["proxy"].shape) == (EX_B, 18, 256, 256)
+              and bool(torch.isfinite(xbatch["proxy"]).all()),
+              "the assembled proxy is not (B, 18, 256, 256) finite")
+        xst = distill.make_train_state(load_regressor_weights(
+            os.path.join(root, WEIGHTS), dev), learning_rate=DISTILL_LR)
+        xstep = distill.make_train_step()
+        xstep(xst, assets, xbatch)
+        (_, xm, _), xs_s, _, _ = counted(lambda: xstep(xst, assets, xbatch))
+        check(np.isfinite(float(xm["loss"])), "the distillation step on the "
+              "extracted batch: loss %s" % xm["loss"])
+        xscn = synth.crop_scene(assets, synth.draws_to(xdraws.crop, dev),
+                                EX_WH)
+        k3_new += [dict(k3_case(xscn, EX_B, wh_, scale, K3_TRAIN_PLAIN_B),
+                        path="extracted_train")
+                   for wh_, scale in ((EX_WH, 1.0), (EX_WH // 4, 0.25))]
+        k3_paths["extracted_train"] = ex_k3
+        emit("extracted_train", t, b=EX_B, wh=EX_WH, seed=EX_SEED,
+             weights=PN_WEIGHTS[256], extraction_failures=failed[-1],
+             extraction_ms_per_batch=round(ex_s * 1e3, 3),
+             assemble_ms=round(asm_s * 1e3, 3),
+             distill_step_ms=round(xs_s * 1e3, 3),
+             distill_loss=float(xm["loss"]), k3_launches=ex_k3,
+             nvidia_smi=smi)
+
+        # -- baselines: HMR / SPIN predictions, fitted and evaluated --------
+        t = time.time()
+        views = stages._gather_views(os.path.join(tree, "images"),
+                                     os.path.join(tree, "proxies"), True)
+        by_player = {}
+        for node, view in views:
+            if node.scene == "scene0":
+                by_player.setdefault(node.path, (node, []))[1].append(view)
+        players = [(n, v[:TREE_VIEWS]) for n, v in by_player.values()
+                   if len(v) >= TREE_VIEWS]
+        sil_pv, j2d_pv = [], []
+        for node, vs in players:
+            s_i, j_i = stages.load_proxy_batch(os.path.join(
+                tree, "proxies", node.game, node.scene, node.player), vs)
+            sil_pv.append(s_i)
+            j2d_pv.append(j_i)
+        sil_pv, j2d_pv = np.stack(sil_pv), np.stack(j2d_pv)
+        n_p, n_v = sil_pv.shape[:2]
+        with torch.no_grad():
+            pred = predict_smpl(load_regressor_weights(os.path.join(
+                root, WEIGHTS), dev), assets,
+                torch.from_numpy(sil_pv[:, 0]).to(dev),
+                torch.from_numpy(j2d_pv[:, 0]).to(dev), device=dev)
+        bdir = os.path.join(tmp, "baselines")
+        os.makedirs(bdir)
+        files = []
+        for i in range(n_p):
+            rot, bet, cam_ = (pred.pose_rotmats[i:i + 1].cpu().numpy(),
+                              pred.betas[i:i + 1].cpu().numpy(),
+                              pred.cam_wp[i:i + 1].cpu().numpy())
+            if i % 2 == 0:
+                aa = rotmat_to_axis_angle(pred.pose_rotmats[i]).cpu().numpy()
+                path = os.path.join(bdir, "player%d.npy" % i)
+                np.save(path, np.concatenate([cam_[0], aa.reshape(-1),
+                                              bet[0]])[None])
+            else:
+                path = os.path.join(bdir, "player%d.npz" % i)
+                np.savez(path, pred_rotmat=rot, pred_betas=bet,
+                         pred_camera=cam_)
+            files.append(path)
+        preds = [baselines.load_baseline_prediction(p) for p in files]
+        # Through axis-angle and back: the body joints' rotations within
+        # BASE_HMR_TOL; the global orient of a body facing the camera lies
+        # near theta = pi, where the log map (the JAX package's formula)
+        # loses precision, so its gap is reported, not held.
+        hmr_gap = {part: max(float(np.abs(
+            preds[i]["pose_rotmats"][0, sl]
+            - pred.pose_rotmats[i, sl].cpu().numpy()).max())
+            for i in range(0, n_p, 2))
+            for part, sl in (("body", slice(1, None)),
+                             ("global_orient", slice(0, 1)))}
+        check(hmr_gap["body"] <= BASE_HMR_TOL, "the HMR round trip moves a "
+              "body joint's rotation by %.3g" % hmr_gap["body"])
+        runs = {}
+
+        def run(name, fn):
+            out, s_, k12_, _ = counted(fn)
+            check(k12_["band_raster_fwd"] > 0 and k12_["band_raster_bwd"] > 0,
+                  "baselines %s launched K1/K2 %s" % (name, k12_))
+            runs[name] = (out, s_, k12_)
+            k12_paths["baselines_" + name] = k12_
+            return out
+
+        r2d = run("2d", lambda: baselines.evaluate_baseline_2d(
+            assets, preds, sil_pv[:, 0], j2d_pv[:, 0], device=dev))
+        r1v = run("oneview", lambda: baselines.evaluate_baseline_oneview(
+            assets, preds, sil_pv[:, 1], j2d_pv[:, 1], device=dev))
+        rcr = run("cross", lambda: baselines.evaluate_baseline_cross(
+            assets, preds, sil_pv, j2d_pv, 0, 1, n_v, device=dev))
+        rmv = {sv: run("multi_view_%s" % ("sv_init" if sv else "raw"),
+                       lambda: baselines.multi_view_optimization_multi(
+                           assets, preds, sil_pv, j2d_pv,
+                           single_view_init=sv, device=dev))
+               for sv in (True, False)}
+        # Each prediction unfitted in every view: the multi-view fits' init.
+        flat = [p for p in preds for _ in range(n_v)]
+        init_mv = baselines.evaluate_baseline_2d(
+            assets, flat, sil_pv.reshape((-1,) + sil_pv.shape[2:]),
+            j2d_pv.reshape((-1,) + j2d_pv.shape[2:]), optimize=False,
+            device=dev)
+        mv_init = {"iou": float(init_mv["init_iou"].mean()),
+                   "err": float(init_mv["init_err"].mean())}
+        moved = {}
+        for name, init_iou, init_err, iou, err in (
+                ("2d", r2d["init_iou"], r2d["init_err"], r2d["opt_iou"],
+                 r2d["opt_err"]),
+                ("oneview", r1v["init_iou"], r1v["init_err"], r1v["opt_iou"],
+                 r1v["opt_err"]),
+                ("multi_view_sv_init", [mv_init["iou"]], [mv_init["err"]],
+                 rmv[True]["silh_iou"], rmv[True]["joint_err"]),
+                ("multi_view_raw", [mv_init["iou"]], [mv_init["err"]],
+                 rmv[False]["silh_iou"], rmv[False]["joint_err"])):
+            moved[name] = {"iou": [float(np.mean(init_iou)),
+                                   float(np.mean(iou))],
+                           "joint_err": [float(np.mean(init_err)),
+                                         float(np.mean(err))]}
+            check(moved[name]["iou"][1] > moved[name]["iou"][0]
+                  and moved[name]["joint_err"][1]
+                  < moved[name]["joint_err"][0],
+                  "baselines %s: IoU %s and joint error %s from init to fit"
+                  % (name, moved[name]["iou"], moved[name]["joint_err"]))
+        check(np.isfinite(rcr["silh_iou"]).all()
+              and np.isfinite(rcr["joint_err"]).all(),
+              "the cross-view evaluation is not finite: %s" % rcr)
+        # One player on the card against the CPU, a short joints-only fit.
+        short = FitConfig(**BASE_CPU_KNOBS)
+        one = {}
+        for where in ("cpu", dev):
+            one[str(where)] = baselines.evaluate_baseline_2d(
+                assets.to(where), preds[:1], sil_pv[:1, 0], j2d_pv[:1, 0],
+                fit_cfg=short, device=where)
+        base_gap = max(
+            max(float(np.abs(one[str(dev)][k] - one["cpu"][k]).max())
+                for k in ("init_iou", "init_err", "opt_iou", "opt_err")),
+            max(float((getattr(one[str(dev)]["result"], k).cpu()
+                       - getattr(one["cpu"]["result"], k)).abs().max())
+                for k in ("global_orient", "cam_wp")))
+        check(base_gap <= BASE_CPU_TOL, "one baseline player, card vs CPU: "
+              "%.3g" % base_gap)
+        # K1/K2 at the baselines' rows: the players (2d, cross) and the
+        # players' views (multi-view), the predictions' bodies at 512^2.
+        mv_rows = rmv[True]["result"]
+        for rows_name, bp, go, be, cm in (
+                ("baselines_players", pred.pose_rotmats[:, 1:],
+                 pred.pose_rotmats[:, :1], pred.betas, pred.cam_wp),
+                ("baselines_views",
+                 mv_rows.body_pose.repeat_interleave(n_v, 0),
+                 mv_rows.global_orient.reshape(-1, 1, 3, 3),
+                 mv_rows.betas.repeat_interleave(n_v, 0),
+                 mv_rows.cam_wp.reshape(-1, 3))):
+            with torch.no_grad():
+                v2d = rows_verts2d(bp, go, be, cm, PROXY_WH)
+            k12_new.append(dict(k12_case(v2d, PROXY_WH, BASE_K12_PLAIN_B),
+                                path=rows_name))
+        emit("baselines", t, players=n_p, views=n_v, wh=PROXY_WH,
+             formats={"hmr_npy": (n_p + 1) // 2, "spin_npz": n_p // 2},
+             hmr_round_trip_max_abs=hmr_gap,
+             iters={"broad": cfg.BROAD_VIEW_ITERS,
+                    "multi_view": [cfg.MULTI_VIEW_ROUNDS,
+                                   cfg.MULTI_VIEW_ITERS]},
+             wall_s={k: round(v[1], 4) for k, v in runs.items()},
+             ms_per_iteration={
+                 k: round(v[1] / max(v[2]["band_raster_fwd"], 1) * 1e3, 3)
+                 for k, v in runs.items()},
+             k1_k2_launches={k: v[2] for k, v in runs.items()},
+             init_to_fit=moved,
+             cross={"fit_view": 0, "eval_view": 1,
+                    "silh_iou": float(rcr["silh_iou"].mean()),
+                    "joint_err": float(rcr["joint_err"].mean())},
+             one_player_card_vs_cpu={"max_abs": base_gap,
+                                     "tol": BASE_CPU_TOL,
+                                     "fit": BASE_CPU_KNOBS},
+             k12=[{k: r[k] for k in ("path", "b", "wh", "ms", "bound_ms",
+                                     "plain_ms", "plain_b")}
+                  for r in k12_new[-2:]], nvidia_smi=smi)
+
+        # -- cli_train_perception: train-perception as subprocesses ---------
+        t = time.time()
+        cli_runs = {}
+        for kind, loader in (("proxynet", load_proxynet_weights),
+                             ("detector", load_detector_weights)):
+            out_path = os.path.join(tmp, "cli_%s.npz" % kind)
+            line, wall = cli("train-perception", "--out", out_path,
+                             "--model", kind, "--steps", str(CLI_PT_STEPS))
+            check(line == {"weights": out_path, "steps": CLI_PT_STEPS},
+                  "train-perception printed %s" % line)
+            net = loader(out_path, dev)
+            check(all(bool(torch.isfinite(v).all())
+                      for v in net.state_dict().values()
+                      if v.is_floating_point()),
+                  "the CLI's %s weights are not finite" % kind)
+            cli_runs[kind] = {"wall_s": wall, "steps": CLI_PT_STEPS}
+        emit("cli_train_perception", t, runs=cli_runs, nvidia_smi=smi)
+        return k12_paths, k3_paths, k12_new, k3_new
+
     # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
     k3_launches_pn = {}
     for wh in PN_SHAPES:
@@ -3373,7 +3980,8 @@ def main() -> int:
         for phases in (lambda: tree_phases(work),
                        lambda: clip_phases(
                            work, os.path.join(work, "rgb", "images")),
-                       lambda: train_phases(work)):
+                       lambda: train_phases(work),
+                       lambda: perception_phases(work)):
             phases = phases()
             k12_launches.update(phases[0])
             k3_fit_launches.update(phases[1])
@@ -3628,10 +4236,11 @@ def main() -> int:
 
     kernels = []
     # K1 and K2 run once per fit iteration (K1 alone in a forward-only
-    # evaluation) on nine paths: the 22-player fit, the three GT-3D
-    # evaluations, the broadcast-view fit (with the multi-view fit its
-    # pose comes from), the track bench, the mint chain of stages and
-    # the single-view stage at its defaults on the tree and on the clip. Their times are the mean per
+    # evaluation) on the 22-player fit, the three GT-3D evaluations, the
+    # broadcast-view fit (with the multi-view fit its pose comes from),
+    # the track bench, the mint chain of stages, the single-view stage at
+    # its defaults on the tree and on the clip, the self-supervised
+    # trainer and the five baseline evaluations. Their times are the mean per
     # launch over the path shapes of "shapes" (the plain versions' on
     # plain_b of the b rows), their pairs the sum over them.
     for name, line in (("band_raster_fwd", 33), ("band_raster_bwd", 475)):
@@ -3674,7 +4283,11 @@ def main() -> int:
     # pair of close-ups), the texture probe's crops (256², 64²), the
     # part-segmentation and textured renders (one 512² pass each for a
     # player and its occluder, B = 2) and the 20- and 21-channel
-    # evaluations (512² and 128², or 256² and 64²). Its
+    # evaluations (512² and 128², or 256² and 64²), and the perception
+    # trainers' synthesis inside every step (ProxyNet: 256² and 64²,
+    # B = 8; the detector: 448², B = 4), the classifier's dataset, the
+    # mixed real and synthetic batches and the extracted batch (256² and
+    # 64², B = 16). Its
     # times are the mean per launch over the pass shapes, its pairs the
     # sum over them; "shapes" gives each (the plain version's time on
     # plain_b of the b images), "launches_by_path" each path's count.

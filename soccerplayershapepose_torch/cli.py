@@ -14,6 +14,7 @@ the same ``<root>/<game>/<scene>/<player>/<view>`` trees:
     python -m soccerplayershapepose_torch detect-players --frame-root ... --out-root ...
     python -m soccerplayershapepose_torch crop-player --image-root ... --out-root ...
     python -m soccerplayershapepose_torch train --image-root ... --target-root ...
+    python -m soccerplayershapepose_torch train-perception --out ... --model proxynet|detector
 
 Each stage runs on ``--device`` (default ``cuda``; it refuses to start
 where there is no card rather than fall back to the CPU; ``--device cpu``
@@ -25,8 +26,11 @@ bundle given to ``harvest-frames --classifier-params``; ``--checkpoint``
 imports a reference ``.tar`` regressor instead (``io/torch_import.py``)
 and exits non-zero where the file does not exist. ``train`` runs the
 distillation trainer (``drivers/training.py``) and prints
-``{"best_epoch", "best_val"}``. The subcommand ``train-perception`` is not
-ported yet.
+``{"best_epoch", "best_val"}``. ``train-perception`` trains ProxyNet (at
+``--wh``², ``--batch-size`` crops a step) or the detector (256 × 448
+frames, half the batch size, at least 1) from flax's initialisers on the
+synthetic factory (``train/perception.py``) and writes the weights in the
+JAX package's flat npz layout.
 """
 
 from __future__ import annotations
@@ -225,6 +229,20 @@ def main(argv=None) -> int:
     p.add_argument("--smpl-dir", default=None)
     _add_device_arg(p)
 
+    p = sub.add_parser("train-perception",
+                       help="train ProxyNet or the detector on synthetic "
+                            "SMPL renders")
+    p.add_argument("--out", required=True, help="output weights .npz")
+    p.add_argument("--model", choices=["proxynet", "detector"],
+                   default="proxynet")
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--wh", type=int, default=256)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--no-iuv", action="store_true")
+    p.add_argument("--smpl-dir", default=None)
+    _add_device_arg(p)
+
     p = sub.add_parser("create-proxy",
                        help="proxy extraction from raw crops on the card")
     p.add_argument("--image-root", required=True)
@@ -363,6 +381,27 @@ def main(argv=None) -> int:
         print(json.dumps({"best_epoch": out["best_epoch"],
                           "best_val": {k: float(v)
                                        for k, v in out["best_val"].items()}}))
+        return 0
+
+    if args.command == "train-perception":
+        from soccerplayershapepose_torch.smpl import load_assets
+        from soccerplayershapepose_torch.train.perception import (
+            save_perception_weights, train_detector_synth,
+            train_proxynet_synth)
+        from soccerplayershapepose_torch.utils.precision import \
+            default_device
+        dev = default_device(args.device)
+        assets = load_assets(model_dir=args.smpl_dir, device=dev)
+        if args.model == "proxynet":
+            state = train_proxynet_synth(
+                assets, steps=args.steps, batch=args.batch_size, wh=args.wh,
+                learning_rate=args.lr, with_iuv=not args.no_iuv, device=dev)
+        else:
+            state = train_detector_synth(
+                assets, steps=args.steps, batch=max(1, args.batch_size // 2),
+                learning_rate=args.lr, device=dev)
+        save_perception_weights(args.out, state.model)
+        print(json.dumps({"weights": args.out, "steps": args.steps}))
         return 0
 
     if args.command == "create-proxy":

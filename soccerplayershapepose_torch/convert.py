@@ -15,12 +15,15 @@ detector's (``weights/detector_256x448_f16.npz``) into
 time. Nothing is written to disk but a
 classifier bundle, in the JAX package's layout, when one is saved.
 
-The other direction serves the trainers: the regressor's and the relation
-module's state back to flat flax names and layouts
-(:func:`regressor_flat_from_state_dict`, :func:`relation_flat_from_module`),
-which the checkpoints and the saved weights use, and a JAX ``TrainState``'s
-variables (as numpy) into the port's trainer state
-(:func:`train_state_from_jax`), so both packages can train from one point.
+The other direction serves the trainers: the regressor's, ProxyNet's, the
+detector's and the relation module's state back to flat flax names and
+layouts (:func:`regressor_flat_from_state_dict`,
+:func:`proxynet_flat_from_state_dict`, :func:`detector_flat_from_state_dict`,
+:func:`relation_flat_from_module`), which the checkpoints and the saved
+weights use, and a JAX train state's variables and Adam moments (as numpy)
+into the port's trainer state (:func:`train_state_from_jax`,
+:func:`perception_state_from_jax`), so both packages can train from one
+point.
 """
 
 from __future__ import annotations
@@ -499,4 +502,93 @@ def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
                  "a JAX TrainState", "the regressor")
     for k, v in log_vars.items():
         state.log_vars[k].copy_(torch.as_tensor(np.array(v, np.float32)))
+    return state
+
+
+def _proxynet_flax_path(mod: str) -> str:
+    """Inverse of :func:`_proxynet_module_name`: a :class:`ProxyNet` or
+    :class:`PlayerDetector` submodule → its flax path
+    (``trunk.trunk.blocks.3.convs.1`` → ``FPNTrunk_0/trunk/BasicBlock_3/
+    Conv_1``, ``trunk.fpn.lateral.2`` → ``FPNTrunk_0/fpn/lateral2``,
+    ``kp_tower.convs.0`` → ``kp_tower/Conv_0``, ``kp_out`` → ``kp_out``)."""
+    parts = mod.split(".")
+    if parts[0] == "trunk" and parts[1] == "trunk":
+        if parts[2] in ("conv", "norm"):
+            return "FPNTrunk_0/trunk/" + {"conv": "Conv_0",
+                                          "norm": "BatchNorm_0"}[parts[2]]
+        kind = {"convs": "Conv", "norms": "BatchNorm"}[parts[4]]
+        return "FPNTrunk_0/trunk/BasicBlock_%d/%s_%d" % (
+            int(parts[3]), kind, int(parts[5]))
+    if parts[0] == "trunk" and parts[1] == "fpn":
+        return "FPNTrunk_0/fpn/%s%d" % (parts[2], int(parts[3]))
+    if len(parts) == 3 and parts[1] == "convs":
+        return "%s/Conv_%d" % (parts[0], int(parts[2]))
+    if len(parts) == 1:
+        return parts[0]
+    raise KeyError(mod)
+
+
+def perception_flax_name(name: str) -> Optional[str]:
+    """A :class:`ProxyNet` or :class:`PlayerDetector` state-dict name → its
+    flat flax variable name (``trunk.trunk.norm.running_mean`` →
+    ``batch_stats/FPNTrunk_0/trunk/BatchNorm_0/mean``), or None for BN's
+    ``num_batches_tracked``."""
+    mod, leaf = name.rsplit(".", 1)
+    if leaf == "num_batches_tracked":
+        return None
+    path = _proxynet_flax_path(mod)
+    flax_leaf = {"weight": "scale" if "BatchNorm" in path else "kernel",
+                 "bias": "bias", "running_mean": "mean",
+                 "running_var": "var"}[leaf]
+    col = "batch_stats" if flax_leaf in ("mean", "var") else "params"
+    return "%s/%s/%s" % (col, path, flax_leaf)
+
+
+def proxynet_flat_from_state_dict(sd: dict) -> dict:
+    """A :class:`ProxyNet` state dict → flat flax variables as fp32 numpy:
+    the inverse of :func:`proxynet_state_dict_from_flat`
+    (:func:`perception_flax_name`, kernels OIHW → HWIO)."""
+    flat = {}
+    for name, t in sd.items():
+        key = perception_flax_name(name)
+        if key is None:
+            continue
+        a = t.detach().cpu().to(torch.float32).numpy().copy()
+        flat[key] = to_flax_layout(a) if key.endswith("/kernel") else a
+    return flat
+
+
+def detector_flat_from_state_dict(sd: dict) -> dict:
+    """A :class:`PlayerDetector` state dict → flat flax variables: the
+    inverse of :func:`detector_state_dict_from_flat`."""
+    return proxynet_flat_from_state_dict(sd)
+
+
+@torch.no_grad()
+def perception_state_from_jax(state, params: Mapping, batch_stats: Mapping,
+                              opt_state=None):
+    """Copy a JAX perception train state (``params``, ``batch_stats`` and
+    optax's Adam state, as numpy) into the port's ``state``
+    (``train/perception.py:PerceptionTrainState``) in place: the net's
+    parameters and BN statistics, and with ``opt_state`` (optax's
+    ``(ScaleByAdamState, EmptyState)`` or the ``ScaleByAdamState``) Adam's
+    moments and count. Returns ``state``."""
+    model = state.model
+    flat = flatten_tree({"params": params, "batch_stats": batch_stats})
+    _load_strict(model, proxynet_state_dict_from_flat(flat),
+                 "a JAX perception state", type(model).__name__)
+    if opt_state is None:
+        return state
+    adam = opt_state if hasattr(opt_state, "mu") else opt_state[0]
+    names = [perception_flax_name(n)[len("params/"):]
+             for n, _ in model.named_parameters()]
+    for moments, tree in ((state.opt.mu, adam.mu), (state.opt.nu, adam.nu)):
+        mflat = flatten_tree(tree)
+        for key, m in zip(names, moments):
+            a = np.array(mflat[key], np.float32)
+            if key.endswith("/kernel"):
+                a = from_flax_layout(a)
+            m.copy_(torch.from_numpy(np.ascontiguousarray(a)).reshape(
+                m.shape))
+    state.opt.count = int(np.asarray(adam.count))
     return state

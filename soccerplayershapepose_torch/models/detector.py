@@ -14,6 +14,11 @@ a stable descending sort, so that among equal scores (most of the K slots
 hold zero-score non-peaks) the lower cell index comes first, as
 ``jax.lax.top_k`` orders them; ``torch.topk`` gives no such order.
 
+Training (:func:`center_targets`, :func:`detector_loss`) splats a
+Gaussian at each ground-truth box's centre cell and takes the CenterNet
+focal loss on the heatmap plus L1 losses of the size and offset gathered
+at those cells; boxes whose centre lies off the frame are masked.
+
 ``F.softplus`` returns its input above 20 where ``jax.nn.softplus``
 computes log(1 + eˣ): the two differ there by less than 2e-9 cells.
 """
@@ -125,3 +130,66 @@ def decode_detections(out: DetectorOutput, top_k: int = 48,
                                                   valid.to(idx.dtype)) > 0
         scores = torch.where(kept, scores, 0.0)
     return Detections(boxes=boxes, scores=scores)
+
+
+def center_targets(boxes: torch.Tensor, mask: torch.Tensor,
+                   hw, stride: int = STRIDE) -> dict:
+    """Training maps from (B, N, 4) pixel boxes and their (B, N) validity.
+
+    Returns ``heat`` (B, h, w), the max over boxes of a Gaussian at each
+    centre cell (radius a third of the box's smaller side in cells,
+    clipped to [1, 8], σ = radius / 1.5); ``size`` and ``offset`` (B, N,
+    2), the box's (w, h) in cells and its centre's place in the cell minus
+    0.5; ``cell`` (B, N) int64 flat centre-cell indices; ``mask`` (B, N),
+    the validity with boxes whose centre lies off the frame dropped.
+    """
+    h, w = hw[0] // stride, hw[1] // stride
+    cx = (boxes[..., 0] + boxes[..., 2]) / 2 / stride
+    cy = (boxes[..., 1] + boxes[..., 3]) / 2 / stride
+    bw = (boxes[..., 2] - boxes[..., 0]) / stride
+    bh = (boxes[..., 3] - boxes[..., 1]) / stride
+    inside = ((cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)).to(torch.float32)
+    mask = mask * inside
+    ix = torch.clamp(torch.floor(cx), 0, w - 1)
+    iy = torch.clamp(torch.floor(cy), 0, h - 1)
+    radius = torch.clamp(torch.minimum(bw, bh) / 3.0, 1.0, 8.0)
+    ys = torch.arange(h, dtype=torch.float32, device=boxes.device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=boxes.device)[None, :]
+    d2 = ((ys - iy[..., None, None]) ** 2
+          + (xs - ix[..., None, None]) ** 2)                  # (B, N, h, w)
+    g = torch.exp(-d2 / (2.0 * (radius[..., None, None] / 1.5) ** 2))
+    heat = torch.amax(g * mask[..., None, None], dim=1)
+    return {"heat": heat, "size": torch.stack([bw, bh], dim=-1),
+            "offset": torch.stack([cx - ix - 0.5, cy - iy - 0.5], dim=-1),
+            "cell": (iy * w + ix).to(torch.int64), "mask": mask}
+
+
+def detector_loss(out: DetectorOutput, targets: dict, mask: torch.Tensor):
+    """CenterNet focal loss on the heatmap (positives where the target is
+    ≥ 0.999, normalised by their count) + 0.1 · L1 of the size + L1 of the
+    offset at the ground-truth cells, both over the valid boxes. Returns
+    ``(total, {"heat", "size", "offset"})``."""
+    mask = mask * targets["mask"]
+    b, h, w, _ = out.center_logits.shape
+    heat_t = targets["heat"]
+    p = torch.sigmoid(out.center_logits[..., 0])
+    pos = (heat_t >= 0.999).to(torch.float32)
+    eps = 1e-6
+    pos_loss = -torch.log(p + eps) * (1 - p) ** 2 * pos
+    neg_loss = -torch.log(1 - p + eps) * p ** 2 * (1 - heat_t) ** 4 \
+        * (1.0 - pos)
+    n_pos = torch.clamp(torch.sum(pos), min=1.0)
+    heat_loss = (torch.sum(pos_loss) + torch.sum(neg_loss)) / n_pos
+
+    def take(t):
+        flat = t.reshape(b, h * w, t.shape[-1])
+        return torch.gather(flat, 1, targets["cell"][..., None].expand(
+            -1, -1, t.shape[-1]))
+
+    m = mask[..., None]
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    size_loss = torch.sum(torch.abs(take(out.size) - targets["size"]) * m) / n
+    off_loss = torch.sum(torch.abs(take(out.offset) - targets["offset"])
+                         * m) / n
+    total = heat_loss + 0.1 * size_loss + off_loss
+    return total, {"heat": heat_loss, "size": size_loss, "offset": off_loss}

@@ -2,8 +2,9 @@
 
 Counterpart of ``soccerplayershapepose_tpu/ops/camera.py``: the orthographic
 projection applies the translation before the scale, weak-perspective →
-translation uses ``t_z = 2f / (res·s + 1e-9)``, and keypoints map from
-[-1, 1] to [0, wh] via ``(k + 1)·wh/2``.
+translation uses ``t_z = 2f / (res·s + 1e-9)`` (and back, ``s = 2f /
+(res·t_z + 1e-9)``), and keypoints map from [-1, 1] to [0, wh] via
+``(k + 1)·wh/2`` and back via ``2k/wh − 1``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,14 @@ def weak_perspective_to_translation(cam_wp: torch.Tensor, focal_length: float,
     """[s, tx, ty] → perspective camera translation [tx, ty, 2f/(res·s+1e-9)]."""
     tz = 2.0 * focal_length / (resolution * cam_wp[..., 0] + 1e-9)
     return torch.stack([cam_wp[..., 1], cam_wp[..., 2], tz], dim=-1)
+
+
+def translation_to_weak_perspective(translation: torch.Tensor,
+                                    focal_length: float,
+                                    resolution: float) -> torch.Tensor:
+    """Perspective camera translation → weak-perspective [s, tx, ty]."""
+    s = 2.0 * focal_length / (resolution * translation[..., 2] + 1e-9)
+    return torch.stack([s, translation[..., 0], translation[..., 1]], dim=-1)
 
 
 def get_intrinsics_matrix(img_width: int, img_height: int, focal_length: float,
@@ -67,3 +76,17 @@ def undo_keypoint_normalisation(keypoints: torch.Tensor,
                                 img_wh: int) -> torch.Tensor:
     """[-1, 1] normalised keypoints → pixel space [0, img_wh]."""
     return (keypoints + 1.0) * (img_wh / 2.0)
+
+
+def normalise_keypoints(keypoints: torch.Tensor, img_wh: int) -> torch.Tensor:
+    """Pixel keypoints → [-1, 1]: ``2k/wh − 1``."""
+    return (2.0 * keypoints) / img_wh - 1.0
+
+
+def check_joints2d_visibility(joints2d: torch.Tensor,
+                              img_wh: int) -> torch.Tensor:
+    """(..., N, 2) joints → (..., N) bool: inside [0, img_wh] on both
+    axes, the bounds included."""
+    inside_x = (joints2d[..., 0] >= 0) & (joints2d[..., 0] <= img_wh)
+    inside_y = (joints2d[..., 1] >= 0) & (joints2d[..., 1] <= img_wh)
+    return inside_x & inside_y

@@ -13,20 +13,27 @@ A bundle (:func:`save_classifier`, :func:`load_classifier`) is a flat npz in
 the JAX package's key layout (``head/params/Dense_k/...``, and optionally
 ``features/params/ResNet_0/...``, ``features/batch_stats/...``,
 ``features/params/Dense_0/...``), so a bundle written by either package
-loads in both (``weights/frame_classifier.npz`` is one). Training the head
-(``train_classifier``) is not ported yet.
+loads in both (``weights/frame_classifier.npz`` is one).
+
+:func:`train_classifier` trains the head as the JAX package does: Adam
+(``train/optim.py``) over precomputed (N, 1000) features in shuffled
+mini-batches, the validation split and every epoch's order drawn from one
+``np.random.RandomState(seed)``, so both packages visit the same rows.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from soccerplayershapepose_torch.models.classifier import ClassifyNet
+from soccerplayershapepose_torch.models.init import flax_init_
 from soccerplayershapepose_torch.models.resnet import resnet18
+from soccerplayershapepose_torch.train.optim import Adam
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, default_device)
 
@@ -135,3 +142,54 @@ def load_classifier(path: str, device: DeviceLike = None) -> Classifier:
     from soccerplayershapepose_torch.convert import load_classifier_weights
     head, features = load_classifier_weights(path, device)
     return make_frame_classifier(head, features, device)
+
+
+def train_classifier(features: np.ndarray, labels: np.ndarray,
+                     epochs: int = 10, lr: float = 2e-4,
+                     batch_size: int = 64, seed: int = 0,
+                     val_split: float = 0.1,
+                     head: Optional[ClassifyNet] = None,
+                     device: DeviceLike = None
+                     ) -> Tuple[ClassifyNet, dict]:
+    """Train the head on (N, 1000) features and (N,) int labels on
+    ``device`` (None: the CUDA card).
+
+    ``RandomState(seed)`` permutes the rows once: the first
+    ``max(1, int(N · val_split))`` are the validation set, and the rest are
+    shuffled again at each epoch and cut into ``batch_size`` mini-batches,
+    one Adam step (``lr``) on the mean cross-entropy each. The head starts
+    from ``head`` (moved to the device and trained in place) or from flax's
+    initialisers drawn with a CPU generator seeded ``seed``. Returns the
+    head in eval mode and ``{"train_loss", "val_acc"}``, one entry per
+    epoch.
+    """
+    dev = default_device(device)
+    rng = np.random.RandomState(seed)
+    n = len(features)
+    order = rng.permutation(n)
+    n_val = max(1, int(n * val_split))
+    val_idx, train_idx = order[:n_val], order[n_val:]
+    if head is None:
+        head = flax_init_(ClassifyNet(), torch.Generator().manual_seed(seed))
+    head = head.to(dev).train()
+    opt = Adam(list(head.parameters()), lr)
+    feats = torch.as_tensor(np.asarray(features, np.float32), device=dev)
+    labs = torch.as_tensor(np.asarray(labels, np.int64), device=dev)
+    val = torch.as_tensor(val_idx, device=dev)
+    history = {"train_loss": [], "val_acc": []}
+    for _ in range(epochs):
+        rng.shuffle(train_idx)
+        losses = []
+        for i in range(0, len(train_idx), batch_size):
+            idx = torch.as_tensor(train_idx[i:i + batch_size], device=dev)
+            loss = F.cross_entropy(head(feats[idx]), labs[idx])
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        history["train_loss"].append(float(np.mean(losses)))
+        with torch.no_grad():
+            pred = torch.argmax(head(feats[val]), dim=-1)
+            history["val_acc"].append(float(
+                (pred == labs[val]).to(torch.float32).mean()))
+    return head.eval(), history

@@ -515,6 +515,110 @@ def evaluate_regressor_e2e(regressor: SingleInputRegressor,
     return out
 
 
+class ExtractedDraws(NamedTuple):
+    """The draws of one :func:`extracted_regressor_batch`: domain-randomised
+    RGB crops with occluders, and the corruption of the fallback rows."""
+    crop: CropDraws
+    corruption: CorruptionDraws
+
+
+def sample_extracted_draws(gen: torch.Generator, b: int, wh: int,
+                           image_gen: Optional[torch.Generator] = None
+                           ) -> ExtractedDraws:
+    """The geometry and the corruption (the training noise model,
+    ``DROP_P``) from ``gen``, the appearance of the wh² crops from
+    ``image_gen`` (default ``gen``)."""
+    crop = sample_crop_draws(gen, b, image_wh=wh, image_gen=image_gen)
+    return ExtractedDraws(crop, sample_corruption_draws(gen, b, wh))
+
+
+@torch.no_grad()
+def extracted_regressor_batch(assets: SMPLAssets, extractor: ProxyExtractor,
+                              draws: ExtractedDraws, wh: int = 256,
+                              proxy_channels: int = 18,
+                              return_raw: bool = False) -> dict:
+    """One regressor batch whose proxies come from the perception path, on
+    the extractor's device.
+
+    The draws' RGB crops (occluders, domain randomisation; K3 twice on the
+    card) go through ``extractor``, and the extracted silhouette and
+    keypoints (and its IUV for 20 or 21 channels) build the proxy; the
+    supervision stays the generating SMPL parameters, the joints in 512²
+    pixels. A row whose extraction finds nobody falls back to the clean
+    labels corrupted by the draws' corruption (:func:`corrupt_proxy_inputs`)
+    and, for the IUV, to the ground-truth IUV image under that silhouette.
+
+    ``return_raw`` returns numpy pre-proxy arrays sized for an on-disk
+    cache instead (``sil`` uint8, ``kps``, ``joints2d``, ``target_pose``,
+    ``target_betas``, ``gt_cam_wp``, ``iuv`` uint8 for 20 or 21 channels):
+    extraction is the expensive part, so a fine-tune extracts a batch once
+    and replays it (:func:`assemble_extracted_batch`).
+    """
+    dev = extractor.device
+    assets = on_device(assets, dev)
+    data = render_crop_batch(assets, draws.crop, wh, return_params=True,
+                             with_image=True)
+    images_u8 = crop_images_u8(data["image"])
+    fb_sil, fb_joints = corrupt_proxy_inputs(
+        draws_to(draws.corruption, dev), data["silhouette"],
+        data["joints2d"])
+    fb_iuv = None
+    if proxy_channels != 18:
+        fb_iuv = gt_iuv_image(data["part"], data["uv"], wh,
+                              mask=fb_sil).cpu().numpy()
+    fb_sil, fb_joints = fb_sil.cpu().numpy(), fb_joints.cpu().numpy()
+    sils, kps, iuvs = [], [], []
+    for j, (kp, sil, iuv) in enumerate(extractor(images_u8)):
+        if kp is None:
+            sils.append(fb_sil[j])
+            kps.append(fb_joints[j])
+            if fb_iuv is not None:
+                iuvs.append(fb_iuv[j])
+        else:
+            sils.append(sil.astype(np.float32))
+            kps.append(kp[:, :2].astype(np.float32))
+            if fb_iuv is not None:
+                iuvs.append(iuv.astype(np.float32) / 255.0
+                            if iuv is not None else fb_iuv[j])
+    scale = cfg.PROXY_REP_INPUT_WH / float(wh)
+    target_pose = torch.cat([data["global_orient"], data["body_pose"]],
+                            dim=1)
+    if return_raw:
+        raw = {"sil": np.stack(sils).astype(np.uint8),
+               "kps": np.stack(kps).astype(np.float32),
+               "joints2d": (data["joints2d"] * scale).cpu().numpy(),
+               "target_pose": target_pose.cpu().numpy(),
+               "target_betas": data["betas"].cpu().numpy(),
+               "gt_cam_wp": data["cam_wp"].cpu().numpy()}
+        if iuvs:
+            raw["iuv"] = (np.stack(iuvs) * 255.0).astype(np.uint8)
+        return raw
+    iuv = torch.from_numpy(np.stack(iuvs)).to(dev) if iuvs else None
+    proxy = _build_proxy(torch.from_numpy(np.stack(sils)).to(dev),
+                         torch.from_numpy(np.stack(kps)).to(dev), wh,
+                         proxy_channels, iuv)
+    return {"proxy": proxy, "joints2d": data["joints2d"] * scale,
+            "target_pose": target_pose, "target_betas": data["betas"],
+            "gt_cam_wp": data["cam_wp"]}
+
+
+def assemble_extracted_batch(raw: dict, wh: int, proxy_channels: int = 18,
+                             device: DeviceLike = None) -> dict:
+    """A cached :func:`extracted_regressor_batch` raw form → the training
+    batch on ``device`` (None: the CUDA card); the proxy is rebuilt there
+    (``pipeline/proxy.py``), cheap beside the extraction."""
+    dev = default_device(device)
+
+    def t(k, scale=1.0):
+        return torch.from_numpy(np.array(raw[k], np.float32)).to(dev) / scale
+
+    iuv = t("iuv", 255.0) if proxy_channels != 18 else None
+    return {"proxy": _build_proxy(t("sil"), t("kps"), wh, proxy_channels,
+                                  iuv),
+            "joints2d": t("joints2d"), "target_pose": t("target_pose"),
+            "target_betas": t("target_betas"), "gt_cam_wp": t("gt_cam_wp")}
+
+
 def expand_regressor_channels(src_path: str, dst_path: str,
                               proxy_channels: int) -> None:
     """18-channel regressor weights (a flax-layout npz) → a 20- or

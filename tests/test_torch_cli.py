@@ -123,8 +123,8 @@ def test_cli_usage_error():
     assert "--image-root" in out.stderr
     out = run_cli("train")
     assert out.returncode != 0 and "--image-root" in out.stderr
-    out = run_cli("train-perception")      # not ported yet
-    assert out.returncode != 0 and "invalid choice" in out.stderr
+    out = run_cli("train-perception")
+    assert out.returncode != 0 and "--out" in out.stderr
 
 
 def test_cli_single_view_on_cpu_matches_in_process(tmp_path, tiny_tree):
