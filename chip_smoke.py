@@ -107,7 +107,21 @@ call and drives the port's two paths on the card:
   files: single-view, cross-view and multi-view fits at their defaults and
   512^2 (K1/K2 at the players' and the views' rows), the IoU rising and
   the joint error falling, one player held to the CPU; and the command
-  line's ``train-perception`` for both nets as subprocesses.
+  line's ``train-perception`` for both nets as subprocesses;
+* last, the data- and model-parallel layer (``parallel/``) at the default
+  single-view stage's batch (32 rows, 512^2, 20 iterations with the mint
+  chain's priors, deterministic algorithms on): the sharded fit over NCCL
+  at world size 1 in this process (one card) bit for bit against the plain
+  loop, ms an iteration of each; then two gloo ranks on cuda:0 (started
+  after the build, so that they reach the card and run their work once
+  while the parity phases run, and waiting until this phase) holding the
+  sharded fit (16 rows a rank) to the one-process card fit after 3
+  iterations at the CPU tests' bars, each rank's K1/K2 launches counted,
+  ProxyNet's ``shard_train_step`` on the 8 crops of 256^2 split 4 + 4 (its
+  batch synthesised by K3 here) to the one-process step, and the
+  distillation step on a (1, 2) grid (the IEF's large fc layers
+  column-parallel) to the unsplit step; K1/K2 per launch at the rank's
+  16 x 512^2 from the profiler.
 
 Each kernel is held against its plain PyTorch version on the card and
 timed at its path's shapes. Each kernel also counts the (face, pixel) pairs
@@ -128,9 +142,11 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import faulthandler
+import gc
 import json
 import os
 import shutil
@@ -456,6 +472,25 @@ BASE_CPU_KNOBS = dict(iters=3, lr=1e-3, use_silhouette=False,
 BASE_CPU_TOL = 1e-4
 BASE_K12_PLAIN_B = 1
 CLI_PT_STEPS = 2          # train-perception's steps per subprocess
+# parallel: the data- and model-parallel layer at the default single-view
+# stage's batch (32 rows, 512^2 render), 20 of its 100 iterations, the
+# mint chain's priors (one scalar all-reduce an iteration). NCCL runs at
+# world size 1 in this process (one card); cross-rank equality is held on
+# two gloo ranks on cuda:0 (16 rows each).
+PAR_SEED, PAR_ROWS, PAR_ITERS = 95_000_000, 32, 20
+# The pair's fit is held to the one-process card fit at the CPU tests'
+# silhouette bars after their 3 iterations: over 20 iterations at 512^2
+# fp32 differences of a few ulps (cuBLAS picks other algorithms for 16
+# rows than for 32) grow far past them (the phase reports that gap).
+PAR_HELD_ITERS = 3
+PAR_PRIORS = dict(betas_prior=0.01, rot_ortho_prior=0.05)
+PAR_WS1_TOL = 1e-6        # sharded at world size 1 vs the plain loop
+PAR_JOINT_REL = 1e-5      # the pair's fit vs the one-process card fit
+PAR_STATS_REL = 3.5e-6    # the pair's ProxyNet step: BN statistics
+PAR_DISTILL_B = 8         # the (1, 2) grid's distillation batch
+PAR_DISTILL_LR = 1e-3
+PAR_DISTILL_REL = 2e-5    # its losses; parameters as PT_FLIP_SHARE
+PAR_TIMEOUT_S = 300
 
 _T0 = time.time()
 # What a run started and must stop or remove if the budget cuts it off:
@@ -627,6 +662,493 @@ def detection_flips(cpu, gpu, score_tol: float, box_tol: float,
     return out
 
 
+def _parallel_inputs(assets, dev):
+    """The parallel phase's rows: PAR_ROWS bodies of the bench scene's
+    distribution (seed PAR_SEED), their 512^2 silhouettes (K1) and
+    keypoints as targets, a perturbed init; on ``dev``."""
+    import numpy as np
+    import torch
+    from soccerplayershapepose_torch import config as cfg
+    from soccerplayershapepose_torch.fit.engine import FitInit
+    from soccerplayershapepose_torch.ops import (
+        batch_rodrigues, orthographic_project, undo_keypoint_normalisation,
+        weak_perspective_to_translation)
+    from soccerplayershapepose_torch.render import softras
+    from soccerplayershapepose_torch.smpl import smpl_forward
+    aa, betas, cam, _, _ = bench_scene(PAR_ROWS, seed=PAR_SEED)
+    rot = batch_rodrigues(torch.from_numpy(aa)).to(dev)
+    betas, cam = torch.from_numpy(betas).to(dev), torch.from_numpy(cam).to(dev)
+    with torch.no_grad():
+        out = smpl_forward(assets, betas, rot[:, 1:], rot[:, :1])
+        kp = torch.as_tensor(cfg.SMPL_TO_KPRCNN_MAP, device=dev)
+        j2d = undo_keypoint_normalisation(
+            orthographic_project(out.joints, cam)[:, kp], PROXY_WH)
+        sil = (softras.render_silhouette(
+            out.vertices, weak_perspective_to_translation(
+                cam, cfg.FOCAL_LENGTH, PROXY_WH), assets.faces, PROXY_WH,
+            cfg.FOCAL_LENGTH, backface_cull=True) > 0.5).float()
+    noise = batch_rodrigues(torch.from_numpy(np.random.RandomState(
+        PAR_SEED + 1).randn(PAR_ROWS, 24, 3).astype(np.float32) * 0.2))
+    noisy = torch.einsum("bjxy,bjyz->bjxz", rot, noise.to(dev))
+    init = FitInit(noisy[:, 1:].contiguous(), noisy[:, :1].contiguous(),
+                   betas + 0.3,
+                   cam + torch.tensor([0.05, 0.02, -0.02], device=dev))
+    return init, sil, j2d
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms on, inside: the fit's gathers
+    backpropagate through atomic adds, so two runs of the same fit on the
+    card differ after a few iterations (the parallel phase compares fits
+    bit for bit)."""
+    import torch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _fit_fields(res) -> dict:
+    return {k: getattr(res, k).detach().cpu() for k in (
+        "body_pose", "global_orient", "betas", "cam_wp", "translation",
+        "silh_iou", "joint_err", "init_silh_iou", "init_joint_err",
+        "best_iter")}
+
+
+def _pair_inputs(assets, dev) -> dict:
+    """The inputs of the parallel phase's steps, on the CPU: the fit's rows
+    (:func:`_parallel_inputs`), ProxyNet's PT_BATCH crops of PT_WH^2
+    synthesised on ``dev`` (K3) and its initial weights, the regressor's
+    initial weights and the distillation batch."""
+    import torch
+    from soccerplayershapepose_torch.entry import dryrun_batch
+    from soccerplayershapepose_torch.train import distill, synth
+    from soccerplayershapepose_torch.train import perception as ptrain
+    init, sil, j2d = _parallel_inputs(assets, dev)
+    draws = synth.sample_crop_draws(torch.Generator().manual_seed(
+        PAR_SEED + 2), PT_BATCH, image_wh=PT_WH)
+    pbatch = synth.render_crop_batch(assets, draws, PT_WH, with_image=True)
+    net = ptrain.new_proxynet(torch.Generator().manual_seed(PAR_SEED + 3),
+                              device="cpu")
+    reg = distill.new_regressor(18, seed=PAR_SEED, device="cpu")
+    return {"init": [x.cpu() for x in init], "sil": sil.cpu(),
+            "j2d": j2d.cpu(), "pn_state": net.state_dict(),
+            "pn_batch": {k: v.cpu() for k, v in pbatch.items()},
+            "reg_state": reg.state_dict(),
+            "d_batch": dryrun_batch(PAR_DISTILL_B)}
+
+
+def _pair_work(assets, dev, mesh, grid, inp: dict, profile: bool) -> dict:
+    """One rank's share of the pair's work on ``inp``: the sharded fit on
+    ``mesh`` (16 of the 32 rows a rank, every row returned) for PAR_ITERS
+    iterations with its K1/K2 launches counted; ProxyNet's sharded step (4
+    of the 8 crops a rank, global batch norm); the distillation step on
+    the (1, 2) ``grid`` (the IEF's 669 -> 512 and 512 -> 512 layers
+    column-parallel, the whole batch on each rank); with ``profile``, the
+    fit for PAR_HELD_ITERS iterations under the profiler (K1/K2 per
+    launch)."""
+    import torch
+    from soccerplayershapepose_torch import parallel
+    from soccerplayershapepose_torch.fit import FitConfig, single_view_fit
+    from soccerplayershapepose_torch.models.perception import ProxyNet
+    from soccerplayershapepose_torch.models.regressor import (
+        SingleInputRegressor)
+    from soccerplayershapepose_torch.render import band_raster as br
+    from soccerplayershapepose_torch.train import distill
+    from soccerplayershapepose_torch.train import perception as ptrain
+    out = {"split_s": {}}
+    t_split = time.time()
+
+    def split(name):
+        nonlocal t_split
+        torch.cuda.synchronize()
+        out["split_s"][name] = time.time() - t_split
+        t_split = time.time()
+
+    init = [x.to(dev) for x in inp["init"]]
+    sil, j2d = inp["sil"].to(dev), inp["j2d"].to(dev)
+    fit_cfg = FitConfig(iters=PAR_ITERS, **PAR_PRIORS)
+    br.reset_launch_counts()
+    t0 = time.time()
+    with deterministic():
+        res = single_view_fit(assets, init, sil, j2d, fit_cfg, device=dev,
+                              mesh=mesh)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.time() - t0
+    out["fit_launches"] = dict(br.LAUNCHES)
+    out["fit"] = _fit_fields(res)
+    split("fit")
+
+    net = ProxyNet()
+    net.load_state_dict(inp["pn_state"])
+    state = ptrain.make_perception_state(net.to(dev), PT_LR)
+    batch = parallel.shard_batch({k: v.to(dev) for k, v in
+                                  inp["pn_batch"].items()}, mesh)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, losses = ptrain.shard_train_step(
+        ptrain.make_proxynet_train_step(), mesh)(state, batch)
+    torch.cuda.synchronize()
+    out["pn_s"] = time.time() - t0
+    out["pn_losses"] = {k: float(v) for k, v in losses.items()}
+    out["pn_state"] = {k: v.cpu() for k, v in net.state_dict().items()}
+    split("proxynet")
+
+    reg = SingleInputRegressor(in_channels=18)
+    reg.load_state_dict(inp["reg_state"])
+    dstate = distill.make_train_state(reg.to(dev),
+                                      learning_rate=PAR_DISTILL_LR)
+    distill.shard_train_state(dstate, grid)
+    dbatch = {k: v.to(dev) for k, v in inp["d_batch"].items()}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dstate, metrics, _ = distill.make_train_step(mesh=grid)(
+        dstate, assets, parallel.shard_batch(dbatch, grid))
+    torch.cuda.synchronize()
+    out["d_s"] = time.time() - t0
+    out["d_metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["d_log_vars"] = {k: float(v.detach())
+                         for k, v in dstate.log_vars.items()}
+    out["d_state"] = {k: v.cpu() for k, v in distill.gather_regressor(
+        dstate, grid).items()}
+    out["d_split"] = [n for n, m in reg.named_modules()
+                      if type(m).__name__ == "ColumnParallelLinear"]
+    split("distill")
+
+    # Last, as a profiler session slows the launches after it.
+    if not profile:
+        return out
+    with deterministic(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out["held_fit"] = _fit_fields(single_view_fit(
+            assets, init, sil, j2d, dataclasses.replace(
+                fit_cfg, iters=PAR_HELD_ITERS), device=dev, mesh=mesh))
+        torch.cuda.synchronize()
+    k12 = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, tag in (("band_raster_fwd", "band_fwd"),
+                          ("band_raster_bwd", "band_bwd")):
+            if tag in ev.key:
+                us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+                n, tot = k12.get(name, (0, 0.0))
+                k12[name] = (n + ev.count, tot + us / 1e3)
+    out["k12_profile"] = {k: {"launches": n, "ms_per_launch": tot / n}
+                          for k, (n, tot) in k12.items() if n}
+    split("held_fit")
+    return out
+
+
+def _parallel_rank(rank: int, world: int, work: str, parent: int,
+                   ready, go) -> None:
+    """One of the parallel phase's two gloo ranks on cuda:0, started early
+    (:func:`start_parallel_pair`): it reaches the card, joins the pair and
+    runs :func:`_pair_work` once on inputs of its own (the same seeds), so
+    that the first call's costs (the card's libraries, gloo on CUDA
+    tensors) fall outside the phase; then it leaves the pair, reports on
+    ``ready`` and waits for ``go``. After ``go`` it joins a new pair, runs
+    the work on the inputs the phase saved, gathers every rank's K1/K2
+    counts, and rank 0 saves what the pair gives."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    from soccerplayershapepose_torch import _build, parallel
+    from soccerplayershapepose_torch.smpl import synthesize_assets
+    t_start = time.time()
+    _build.load_library()
+    parallel.initialize("file://" + os.path.join(work, "rendezvous"), world,
+                        rank, backend="gloo", device="cuda")
+    dev = torch.device("cuda", 0)
+    assets = synthesize_assets(device=dev)
+    mesh, grid = parallel.make_mesh(), parallel.make_mesh(model_parallel=2)
+    t_warm = time.time()
+    _pair_work(assets, dev, mesh, grid, _pair_inputs(assets, dev), False)
+    torch.cuda.empty_cache()
+    # A live gloo group keeps a core's fraction busy while idle (on the
+    # card machine's build), each group its own: leave the pair until
+    # ``go``, dropping the meshes' references so their groups end too.
+    del mesh, grid
+    dist.destroy_process_group()
+    gc.collect()
+    ready.put((rank, t_warm - t_start, time.time() - t_warm))
+    # The wait's CPU seconds (every thread of the process): what the
+    # waiting rank takes from the host while the other phases run.
+    t_idle, cpu_idle = time.time(), time.process_time()
+    deadline = time.time() + BUDGET_S
+    while not go.wait(5.0):
+        if os.getppid() != parent or time.time() > deadline:
+            os._exit(1)
+    idle = {"wall_s": round(time.time() - t_idle, 3),
+            "cpu_s": round(time.process_time() - cpu_idle, 3)}
+    t_start = time.time()
+    parallel.initialize("file://" + os.path.join(work, "rendezvous_run"),
+                        world, rank, backend="gloo", device="cuda")
+    mesh, grid = parallel.make_mesh(), parallel.make_mesh(model_parallel=2)
+    out = {"rejoin_s": time.time() - t_start}
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    out.update(_pair_work(assets, dev, mesh, grid, inp, True))
+    by_rank = [None] * world
+    dist.all_gather_object(by_rank, (out["fit_launches"], idle))
+    out["fit_launches_by_rank"] = [n for n, _ in by_rank]
+    out["idle_by_rank"] = [i for _, i in by_rank]
+    out["wall_s"] = time.time() - t_start
+    if rank == 0:
+        torch.save(out, os.path.join(work, "rank0.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def start_parallel_pair(root: str) -> dict:
+    """Start the parallel phase's two gloo ranks (daemons: they end with
+    this process); they warm up while the earlier phases run."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    work = tempfile.mkdtemp(prefix="_smoke_par_", dir=root)
+    _WORK_DIRS.append(work)
+    pair = {"work": work, "ready": ctx.Queue(), "go": ctx.Event(),
+            "t_start": time.time(), "warm": {}}
+    pair["procs"] = [ctx.Process(target=_parallel_rank, args=(
+        r, 2, work, os.getpid(), pair["ready"], pair["go"]), daemon=True)
+        for r in range(2)]
+    for p in pair["procs"]:
+        p.start()
+        _CHILDREN.append(p)
+    return pair
+
+
+def wait_parallel_pair(pair: dict) -> None:
+    """Wait until both ranks have warmed up (they must, before a phase
+    that times the card); fails if a rank died or PAR_TIMEOUT_S passed."""
+    import queue
+    deadline = pair["t_start"] + PAR_TIMEOUT_S
+    while len(pair["warm"]) < 2:
+        dead = [r for r, p in enumerate(pair["procs"]) if not p.is_alive()]
+        check(not dead and time.time() < deadline,
+              "the gloo pair on cuda:0 did not warm up: ranks %s ended "
+              "(exit codes %s), %d s budget" % (dead, [
+                  p.exitcode for p in pair["procs"]], PAR_TIMEOUT_S))
+        try:
+            rank, start_s, warm_s = pair["ready"].get(timeout=1.0)
+        except queue.Empty:
+            continue
+        pair["warm"][rank] = {"start_s": round(start_s, 3),
+                              "warm_up_s": round(warm_s, 3)}
+        pair["ready_after_s"] = round(time.time() - pair["t_start"], 3)
+
+
+def state_gaps(got: dict, want: dict, lr: float) -> dict:
+    """Two state dicts after one step from the same state: BN statistics'
+    largest gap relative to their scale, and the parameters more than 1e-6
+    apart (Adam's sign flips), each at most 2 lr."""
+    stats_rel, flips, total = 0.0, 0, 0
+    for k, w in want.items():
+        g = got[k].cpu()
+        w = w.cpu()
+        if "running_" in k:
+            stats_rel = max(stats_rel, float((g - w).abs().max())
+                            / max(float(w.abs().max()), 1e-12))
+        elif w.is_floating_point():
+            gap = (g - w).abs()
+            check(bool((gap <= 2 * lr + 1e-6).all()),
+                  "%s moved apart by %.3g in one step" % (k, float(gap.max())))
+            flips += int((gap > 1e-6).sum())
+            total += gap.numel()
+    return {"bn_stats_rel": stats_rel, "adam_sign_flips": flips,
+            "params": total}
+
+
+def parallel_phase(pair, assets, dev, counted, smi) -> tuple:
+    """The ``parallel`` phase: returns the K1/K2 and K3 launches by path."""
+    import torch
+    import torch.distributed as dist
+    from soccerplayershapepose_torch import parallel
+    from soccerplayershapepose_torch.fit import FitConfig, single_view_fit
+    from soccerplayershapepose_torch.models.perception import ProxyNet
+    from soccerplayershapepose_torch.models.regressor import (
+        SingleInputRegressor)
+    from soccerplayershapepose_torch.train import distill
+    from soccerplayershapepose_torch.train import perception as ptrain
+    t = time.time()
+    # The inputs: the fit's rows, ProxyNet's batch (K3), the nets.
+    inp, _, _, pn_k3 = counted(lambda: _pair_inputs(assets, dev))
+    check(pn_k3 == 2, "the ProxyNet batch launched K3 %d times" % pn_k3)
+    torch.save(inp, os.path.join(pair["work"], "inputs.pt"))
+    init = [x.to(dev) for x in inp["init"]]
+    sil, j2d = inp["sil"].to(dev), inp["j2d"].to(dev)
+    fit_cfg = FitConfig(iters=PAR_ITERS, **PAR_PRIORS)
+    warm = dataclasses.replace(fit_cfg, iters=2)
+
+    # NCCL at world size 1, in this process: the sharded fit (one
+    # all-reduce of the counts, one of |total| an iteration, one
+    # all-gather) against the plain loop on the same rows, both with
+    # deterministic algorithms; the pair waits meanwhile.
+    t_nccl = time.time()
+    single_view_fit(assets, init, sil, j2d, warm, device=dev)
+    with deterministic():
+        plain, plain_s, plain_k12, _ = counted(lambda: single_view_fit(
+            assets, init, sil, j2d, fit_cfg, device=dev))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        single_view_fit(assets, init, sil, j2d, warm, device=dev, mesh=mesh)
+        with deterministic():
+            sharded, sharded_s, sharded_k12, _ = counted(
+                lambda: single_view_fit(assets, init, sil, j2d, fit_cfg,
+                                        device=dev, mesh=mesh))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    want = _fit_fields(plain)
+    ws1 = {k: float((v.float() - want[k].float()).abs().max())
+           for k, v in _fit_fields(sharded).items()}
+    bit_equal = all(torch.equal(v, want[k])
+                    for k, v in _fit_fields(sharded).items())
+    for k12 in (plain_k12, sharded_k12):
+        check(k12 == {"band_raster_fwd": PAR_ITERS,
+                      "band_raster_bwd": PAR_ITERS},
+              "the parallel phase's fits launched K1/K2 %s times" % k12)
+    check(max(ws1.values()) <= PAR_WS1_TOL,
+          "the sharded fit at world size 1 differs from the plain loop: %s"
+          % ws1)
+    nccl_s = time.time() - t_nccl
+
+    # The pair's one-process references on the card.
+    t_refs = time.time()
+    with deterministic():
+        held = _fit_fields(single_view_fit(
+            assets, init, sil, j2d, dataclasses.replace(
+                fit_cfg, iters=PAR_HELD_ITERS), device=dev))
+    net = ProxyNet()
+    net.load_state_dict(inp["pn_state"])
+    st = ptrain.make_perception_state(net.to(dev), PT_LR)
+    _, pn_losses = ptrain.make_proxynet_train_step()(
+        st, {k: v.to(dev) for k, v in inp["pn_batch"].items()})
+    pn_want = {k: v.cpu() for k, v in net.state_dict().items()}
+    reg = SingleInputRegressor(in_channels=18)
+    reg.load_state_dict(inp["reg_state"])
+    dst = distill.make_train_state(reg.to(dev), learning_rate=PAR_DISTILL_LR)
+    dst, d_metrics, _ = distill.make_train_step()(
+        dst, assets, {k: v.to(dev) for k, v in inp["d_batch"].items()})
+    d_want = {k: v.cpu() for k, v in dst.regressor.state_dict().items()}
+    torch.cuda.synchronize()
+    refs_s = time.time() - t_refs
+
+    # Two gloo ranks on cuda:0, warmed up and waiting: the fit, ProxyNet's
+    # step and the (1, 2) grid's distillation step, alone on the card.
+    wait_parallel_pair(pair)
+    t_pair = time.time()
+    pair["go"].set()
+    procs = pair["procs"]
+    for p in procs:
+        p.join(max(t_pair + PAR_TIMEOUT_S - time.time(), 1.0))
+    pair_s = time.time() - t_pair
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    check(not late and all(p.exitcode == 0 for p in procs),
+          "the gloo pair on cuda:0 failed: exit codes %s, ranks %s past %d s"
+          % ([p.exitcode for p in procs], late, PAR_TIMEOUT_S))
+    got = torch.load(os.path.join(pair["work"], "rank0.pt"),
+                     weights_only=False)
+    shutil.rmtree(pair["work"], ignore_errors=True)
+
+    # The pair's fit against the one-process card fit, after the CPU
+    # tests' 3 iterations at their silhouette bars; the 20-iteration gap
+    # is reported.
+    fit_gap = {k: float((v.float() - held[k].float()).abs().max())
+               for k, v in got["held_fit"].items()}
+    check(torch.equal(got["held_fit"]["best_iter"], held["best_iter"]),
+          "the pair's best iterations differ from the one-process fit's")
+    for k in ("body_pose", "global_orient", "betas", "cam_wp"):
+        check(fit_gap[k] <= FIT_PARAM_TOL, "the pair's fit: %s %.3g apart"
+              % (k, fit_gap[k]))
+    check(fit_gap["translation"] <= FIT_PARAM_TOL * 200
+          and fit_gap["silh_iou"] <= 1e-6
+          and fit_gap["init_silh_iou"] <= 1e-6,
+          "the pair's fit: %s" % fit_gap)
+    for k in ("joint_err", "init_joint_err"):
+        rel = float(((got["held_fit"][k] - held[k]).abs()
+                     / held[k].abs().clamp(min=1e-12)).max())
+        check(rel <= PAR_JOINT_REL, "the pair's fit: %s %.3g relative"
+              % (k, rel))
+    gap20 = {k: float((v.float() - want[k].float()).abs().max())
+             for k, v in got["fit"].items()}
+    by_rank = got["fit_launches_by_rank"]
+    for r, n in enumerate(by_rank):
+        check(n == {"band_raster_fwd": PAR_ITERS,
+                    "band_raster_bwd": PAR_ITERS},
+              "rank %d of the pair launched K1/K2 %s times" % (r, n))
+
+    # ProxyNet's step: split 4 + 4 against the whole batch on the card.
+    pn_rel = {k: abs(got["pn_losses"][k] - float(v))
+              / max(abs(float(v)), 1e-12) for k, v in pn_losses.items()}
+    pn_gap = state_gaps(got["pn_state"], pn_want, PT_LR)
+    check(max(pn_rel.values()) <= PT_LOSS_REL
+          and pn_gap["bn_stats_rel"] <= PAR_STATS_REL
+          and pn_gap["adam_sign_flips"] <= PT_FLIP_SHARE * pn_gap["params"],
+          "the pair's ProxyNet step vs one process: losses %s, %s"
+          % (pn_rel, pn_gap))
+
+    # The (1, 2) grid's distillation step against the unsplit step.
+    check(got["d_split"] == ["ief.fcs.0", "ief.fcs.1"],
+          "the (1, 2) grid split %s" % got["d_split"])
+    d_rel = {k: abs(got["d_metrics"][k] - float(v))
+             / max(abs(float(v)), 1e-12) for k, v in d_metrics.items()}
+    d_gap = state_gaps(got["d_state"], d_want, PAR_DISTILL_LR)
+    lv_gap = max(abs(got["d_log_vars"][k] - float(v.detach()))
+                 for k, v in dst.log_vars.items())
+    check(max(d_rel.values()) <= PAR_DISTILL_REL and lv_gap <= 1e-6
+          and d_gap["bn_stats_rel"] <= 1e-5
+          and d_gap["adam_sign_flips"] <= PT_FLIP_SHARE * d_gap["params"],
+          "the (1, 2) grid's distillation step vs the unsplit one: losses "
+          "%s, log-variances %.3g, %s" % (d_rel, lv_gap, d_gap))
+
+    iters_s = {"plain": plain_s, "nccl_ws1": sharded_s}
+    emit("parallel", t, rows=PAR_ROWS, render_wh=PROXY_WH, iters=PAR_ITERS,
+         priors=PAR_PRIORS, nccl_backend=backend,
+         ms_per_iter={k: round(v / PAR_ITERS * 1e3, 3)
+                      for k, v in iters_s.items()},
+         ws1_max_abs=ws1, ws1_bit_equal=bit_equal, ws1_tol=PAR_WS1_TOL,
+         deterministic_algorithms=True, nccl_comparison_s=round(nccl_s, 3),
+         references_s=round(refs_s, 3),
+         pair={"backend": "gloo", "device": "cuda:0", "ranks": 2,
+               "rows_per_rank": PAR_ROWS // 2,
+               "started_before_phase_s": round(t - pair["t_start"], 3),
+               "ready_after_s": pair["ready_after_s"],
+               "warm_up_by_rank": pair["warm"],
+               "waiting_by_rank": got["idle_by_rank"],
+               "wall_s": round(pair_s, 3),
+               "rank0_wall_s": round(got["wall_s"], 3),
+               "rank0_rejoin_s": round(got["rejoin_s"], 3),
+               "rank0_split_s": {k: round(v, 3)
+                                 for k, v in got["split_s"].items()},
+               "fit_ms_per_iter": round(got["fit_s"] / PAR_ITERS * 1e3, 3),
+               "held_iters": PAR_HELD_ITERS,
+               "held_fit_max_abs_vs_one_process": fit_gap,
+               "fit_%d_iters_max_abs_vs_one_process" % PAR_ITERS: gap20,
+               "k12_profile": got["k12_profile"],
+               "k12_launches_by_rank": by_rank,
+               "proxynet_step_ms": round(got["pn_s"] * 1e3, 3),
+               "proxynet_loss_rel": pn_rel, "proxynet_state": pn_gap,
+               "distill_step_ms": round(got["d_s"] * 1e3, 3),
+               "distill_loss_rel": d_rel, "distill_log_var_gap": lv_gap,
+               "distill_state": d_gap, "distill_split": got["d_split"]},
+         k3_launches_proxynet_batch=pn_k3, nvidia_smi=smi)
+    k12_paths = {"parallel_plain": plain_k12,
+                 "parallel_nccl_ws1": sharded_k12,
+                 "parallel_gloo_pair": {
+                     k: sum(n[k] for n in by_rank) for k in by_rank[0]}}
+    return k12_paths, {"parallel_proxynet_batch": pn_k3}
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
@@ -735,6 +1257,9 @@ def main() -> int:
     resources = {**br.kernel_resources(), **zb.kernel_resources()}
     emit("build", t, lib=os.path.relpath(lib_path, os.path.dirname(
         os.path.abspath(__file__))), resources=resources)
+    # The parallel phase's gloo pair reaches the card and warms up while
+    # the parity phases run; the timed phases start once it waits.
+    pair = start_parallel_pair(root)
 
     assets = synthesize_assets(device=dev)
     faces = assets.faces
@@ -880,6 +1405,7 @@ def main() -> int:
          iou_gpu=r_gpu.silh_iou.tolist(), iou_cpu=r_cpu.silh_iou.tolist())
 
     # -- fit: the main path ----------------------------------------------------
+    wait_parallel_pair(pair)
     aa, betas, cam, sil, j2d = bench_scene(FIT_BATCH)
     rot = batch_rodrigues(torch.from_numpy(aa))
     init = FitInit(rot[:, 1:], rot[:, :1], torch.from_numpy(betas),
@@ -2204,15 +2730,14 @@ def main() -> int:
                 res.joint_err)))
             return res
 
-        def record_single(a, init, sil, j2d, fit_cfg, mask, device=None):
+        def record_single(a, init, sil, j2d, fit_cfg, mask, **kw):
             return keep_rows("single", sv_fit(a, init, sil, j2d, fit_cfg,
-                                              mask, device=device), mask)
+                                              mask, **kw), mask)
 
         def record_broad(a, bp, be, orient, cam, sil, j2d, fit_cfg, mask,
-                         device=None):
+                         **kw):
             return keep_rows("broad", bv_fit(a, bp, be, orient, cam, sil,
-                                             j2d, fit_cfg, mask,
-                                             device=device), mask)
+                                             j2d, fit_cfg, mask, **kw), mask)
 
         stages.single_view_fit, stages.broad_view_fit = (record_single,
                                                          record_broad)
@@ -4233,6 +4758,11 @@ def main() -> int:
          players=REL_PLAYERS, seed=REL_SEED, tol=REL_TOL,
          tf32=torch.backends.cuda.matmul.allow_tf32,
          record_rel_tol=RECORD_REL, variants=rel_rows, nvidia_smi=smi)
+
+    # == The data- and model-parallel layer ==================================
+    par_k12, par_k3 = parallel_phase(pair, assets, dev, counted, smi)
+    k12_launches.update(par_k12)
+    k3_fit_launches.update(par_k3)
 
     kernels = []
     # K1 and K2 run once per fit iteration (K1 alone in a forward-only

@@ -24,6 +24,11 @@ weights use, and a JAX train state's variables and Adam moments (as numpy)
 into the port's trainer state (:func:`train_state_from_jax`,
 :func:`perception_state_from_jax`), so both packages can train from one
 point.
+
+For a (data, model) grid, :func:`split_model_shards` cuts a full parameter
+(or Adam moment) tree into one model rank's shards and
+:func:`gather_model_shards` puts the ranks' shards back together, by the
+rule of ``models/ief.py:splits_on_model_axis``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from soccerplayershapepose_torch import config as cfg
 from soccerplayershapepose_torch.fit.engine import FitInit
 from soccerplayershapepose_torch.models.classifier import ClassifyNet
 from soccerplayershapepose_torch.models.detector import PlayerDetector
+from soccerplayershapepose_torch.models.ief import splits_on_model_axis
 from soccerplayershapepose_torch.models.perception import ProxyNet
 from soccerplayershapepose_torch.models.regressor import SingleInputRegressor
 from soccerplayershapepose_torch.models.relation import PoseRelationModule
@@ -592,3 +598,36 @@ def perception_state_from_jax(state, params: Mapping, batch_stats: Mapping,
                 m.shape))
     state.opt.count = int(np.asarray(adam.count))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Model-parallel shards of a parameter tree
+# ---------------------------------------------------------------------------
+
+def split_model_shards(tree: Mapping, n_model: int, index: int) -> dict:
+    """A full {name: tensor} tree (torch layout: parameters, or Adam
+    moments keyed by their parameter) → rank ``index``'s shards on a model
+    axis of ``n_model``: each tensor that splits
+    (``models/ief.py:splits_on_model_axis``) cut to its rows [index·k,
+    (index+1)·k) of the output dimension, the rest as it is."""
+    out = {}
+    for k, t in tree.items():
+        if splits_on_model_axis(tuple(t.shape), n_model):
+            rows = t.shape[0] // n_model
+            t = t[index * rows:(index + 1) * rows]
+        out[k] = t
+    return out
+
+
+def gather_model_shards(shards, full_shapes: Mapping) -> dict:
+    """The model ranks' shard trees (in rank order) → the full tree:
+    each tensor whose full shape (``full_shapes[name]``) splits is
+    concatenated along its output dimension, the rest taken from rank 0."""
+    shards = list(shards)
+    out = {}
+    for k, t in shards[0].items():
+        if splits_on_model_axis(tuple(full_shapes[k]), len(shards)):
+            out[k] = torch.cat([s[k] for s in shards], dim=0)
+        else:
+            out[k] = t
+    return out

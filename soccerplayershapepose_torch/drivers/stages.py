@@ -17,8 +17,15 @@ stored fit is ``2f / (proxy_wh · t_z + 1e-9)``, computed in numpy float32
 on the host as JAX computes it. The regressor is ``regressor_fn(assets,
 silhouette, joints2d)`` → :class:`~soccerplayershapepose_torch.pipeline.
 predict.PredictOutput` (``pipeline/predict.py:build_predictor``'s
-function; the seeded random one when None). The JAX stages' ``mesh``
-sharding is not ported.
+function; the seeded random one when None).
+
+With ``mesh`` (``parallel/mesh.py``) the three fit stages run on every
+rank of the grid: each rank gathers the same batches, pads each to
+``batch_size`` as always, runs the regressor on the whole batch and fits
+its slice of the players (``fit/engine.py:run_fit_loop``), and gets every
+player's result back; only rank 0 writes files. Every rank returns the
+same metric means. ``batch_size`` must be a multiple of the data axis: the
+fit raises ``ValueError`` otherwise, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -119,6 +126,11 @@ def _pad_batch(arrays: List[np.ndarray], batch_size: int) -> np.ndarray:
     return arr
 
 
+def _writes(mesh) -> bool:
+    """Whether this rank writes the stage's files (rank 0 of a mesh)."""
+    return mesh is None or mesh.rank == 0
+
+
 def _dev_batch(rows: List[np.ndarray], batch_size: int,
                dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(_pad_batch(rows, batch_size)).to(dev)
@@ -207,15 +219,18 @@ def single_view_optimization(assets: SMPLAssets, image_root: str,
                              skip_existing: bool = False,
                              vis_folder: Optional[str] = None,
                              verbose: bool = True,
-                             device: DeviceLike = None) -> dict:
+                             device: DeviceLike = None,
+                             mesh=None) -> dict:
     """Batched single-view fitting over the player tree: writes per-view
     ``.npz`` results and the player's ``metrics.xml`` [silh_iou,
     joint_err] (its last view's), and returns the init/opt metric means.
     ``skip_existing`` resumes an interrupted run at player-view
     granularity; ``vis_folder`` writes each view's best-iterate mesh
-    overlay over its proxy silhouette as ``<view>_1.png``."""
+    overlay over its proxy silhouette as ``<view>_1.png``. ``mesh``
+    shards each batch's players over the data axis (module docstring)."""
     fit_cfg = fit_cfg or FitConfig()
     dev, assets, regressor_fn = _setup(assets, regressor_fn, device)
+    writes = _writes(mesh)
 
     refine_filter = _refine_gate(mul_folder, score_thresh) \
         if (is_refine and mul_folder) else None
@@ -234,20 +249,20 @@ def single_view_optimization(assets: SMPLAssets, image_root: str,
 
         pred = regressor_fn(assets, sil_b, j2d_b)
         res = single_view_fit(assets, _fit_init(pred), sil_b, j2d_b, fit_cfg,
-                              mask, device=dev)
+                              mask, device=dev, mesh=mesh)
         body_pose, orient, betas, transl, iou, err, iou0, err0 = _host(
             res.body_pose, res.global_orient, res.betas, res.translation,
             res.silh_iou, res.joint_err, res.init_silh_iou,
             res.init_joint_err)
 
-        if vis_folder is not None:
+        if vis_folder is not None and writes:
             from soccerplayershapepose_torch.render.vis import (
                 render_mesh_overlay)
             from soccerplayershapepose_torch.smpl.model import smpl_forward
             with torch.no_grad():
                 best = smpl_forward(assets, res.betas, res.body_pose,
                                     res.global_orient)
-        for i, (node, view) in enumerate(chunk):
+        for i, (node, view) in enumerate(chunk if writes else []):
             out_dir = os.path.join(result_root, node.game, node.scene,
                                    node.player)
             os.makedirs(out_dir, exist_ok=True)
@@ -268,6 +283,7 @@ def single_view_optimization(assets: SMPLAssets, image_root: str,
                     best.vertices[i], assets.faces, res.cam_wp[i], base)
                 io.write_png(os.path.join(
                     vis_dir, os.path.splitext(view)[0] + "_1.png"), overlay)
+        for i in range(len(chunk)):
             sums["init_iou"] += float(iou0[i])
             sums["init_err"] += float(err0[i])
             sums["opt_iou"] += float(iou[i])
@@ -347,14 +363,17 @@ def multi_view_optimization(assets: SMPLAssets, image_root: str,
                             verbose: bool = True,
                             rounds: int = cfg.MULTI_VIEW_ROUNDS,
                             iters_per_phase: int = cfg.MULTI_VIEW_ITERS,
-                            device: DeviceLike = None) -> dict:
+                            device: DeviceLike = None,
+                            mesh=None) -> dict:
     """Batched multi-view fitting from the single-view results: writes the
     shared ``data.npz``, a ``<view>.npz`` per view and ``metrics.xml`` per
     player. A player with fewer views than the tree's most repeats its
     last view. ``rounds`` × (``iters_per_phase`` camera + pose) is the
-    3 × (50 + 50) reference budget."""
+    3 × (50 + 50) reference budget. ``mesh`` shards each batch's players
+    over the data axis (module docstring)."""
     fit_cfg = fit_cfg or FitConfig(iters=cfg.MULTI_VIEW_ITERS)
     dev, assets, _ = _setup(assets, None, device, need_regressor=False)
+    writes = _writes(mesh)
 
     players = []
     for node in io.walk_player_tree(image_root):
@@ -413,7 +432,7 @@ def multi_view_optimization(assets: SMPLAssets, image_root: str,
                              _pad_batch(j2d_l, batch_size), fit_cfg,
                              rounds=rounds, iters_per_phase=iters_per_phase,
                              mask=_mask(len(chunk), batch_size, dev),
-                             device=dev)
+                             device=dev, mesh=mesh)
         body_pose, betas, transl, orient, iou, err = _host(
             res.body_pose, res.betas, res.translation, res.global_orient,
             res.silh_iou, res.joint_err)
@@ -425,9 +444,11 @@ def multi_view_optimization(assets: SMPLAssets, image_root: str,
                 "translation": transl[i, vi],
                 "global_orient": orient[i, vi]}
                 for vi, v in enumerate(views)}
-            io.write_multiview_npz(out_dir, body_pose[i], betas[i], per_view)
-            io.write_metrics(os.path.join(out_dir, "metrics.xml"),
-                             float(iou[i]), float(err[i]))
+            if writes:
+                io.write_multiview_npz(out_dir, body_pose[i], betas[i],
+                                       per_view)
+                io.write_metrics(os.path.join(out_dir, "metrics.xml"),
+                                 float(iou[i]), float(err[i]))
             sums["iou"] += float(iou[i])
             sums["err"] += float(err[i])
             count += 1
@@ -449,15 +470,18 @@ def broad_view_optimization(assets: SMPLAssets, broad_image_root: str,
                             is_refine: bool = False,
                             score_thresh: float = cfg.REFINE_SCORE_THRESH,
                             verbose: bool = True,
-                            device: DeviceLike = None) -> dict:
+                            device: DeviceLike = None,
+                            mesh=None) -> dict:
     """Broadcast transfer: pose and shape frozen from the multi-view
     result, [camera, orient] fitted per player on the broadcast proxy
     from the regressor's init; writes ``data.npz`` and ``metrics.xml``.
     ``is_refine`` refits only players whose own ``metrics.xml`` under
-    ``result_root`` has joint error ≥ ``score_thresh``."""
+    ``result_root`` has joint error ≥ ``score_thresh``. ``mesh`` shards
+    each batch's players over the data axis (module docstring)."""
     fit_cfg = fit_cfg or FitConfig(iters=cfg.BROAD_VIEW_ITERS,
                                    lr=cfg.BROAD_VIEW_LR)
     dev, assets, regressor_fn = _setup(assets, regressor_fn, device)
+    writes = _writes(mesh)
 
     refine_filter = _refine_gate(result_root, score_thresh) if is_refine \
         else None
@@ -487,7 +511,7 @@ def broad_view_optimization(assets: SMPLAssets, broad_image_root: str,
         res = broad_view_fit(
             assets, _pad_batch(bps, batch_size), _pad_batch(bes, batch_size),
             pred.pose_rotmats[:, :1], pred.cam_wp, sil_b, j2d_b,
-            fit_cfg, mask, device=dev)
+            fit_cfg, mask, device=dev, mesh=mesh)
         body_pose, orient, betas, transl, iou, err, iou0, err0 = _host(
             res.body_pose, res.global_orient, res.betas, res.translation,
             res.silh_iou, res.joint_err, res.init_silh_iou,
@@ -496,11 +520,13 @@ def broad_view_optimization(assets: SMPLAssets, broad_image_root: str,
         for i, (node, view) in enumerate(chunk):
             out_dir = os.path.join(result_root, node.game, node.scene,
                                    node.player)
-            os.makedirs(out_dir, exist_ok=True)
-            io.write_fit_npz(os.path.join(out_dir, "data.npz"),
-                             body_pose[i], orient[i], betas[i], transl[i])
-            io.write_metrics(os.path.join(out_dir, "metrics.xml"),
-                             float(iou[i]), float(err[i]))
+            if writes:
+                os.makedirs(out_dir, exist_ok=True)
+                io.write_fit_npz(os.path.join(out_dir, "data.npz"),
+                                 body_pose[i], orient[i], betas[i],
+                                 transl[i])
+                io.write_metrics(os.path.join(out_dir, "metrics.xml"),
+                                 float(iou[i]), float(err[i]))
             sums["init_iou"] += float(iou0[i])
             sums["init_err"] += float(err0[i])
             sums["opt_iou"] += float(iou[i])

@@ -28,7 +28,7 @@ def _assemble_broad(t, f):
 def broad_view_fit(assets: SMPLAssets, body_pose, betas, orient_init,
                    cam_init, silhouette, joints2d,
                    fit_cfg: Optional[FitConfig] = None, mask=None,
-                   device: DeviceLike = None) -> FitResult:
+                   device: DeviceLike = None, mesh=None) -> FitResult:
     """Fit each player's global orient and camera on its broadcast view.
 
     Args:
@@ -39,6 +39,8 @@ def broad_view_fit(assets: SMPLAssets, body_pose, betas, orient_init,
       mask: (B,) validity of padded slots.
       device: where to run; ``None`` means CUDA, and raises where there is
         none. Inputs are moved there.
+      mesh: a ``parallel.mesh.Mesh``: each rank fits its slice of the
+        players over the data axis.
     """
     dev = default_device(device)
     fit_cfg = fit_cfg or FitConfig(iters=cfg.BROAD_VIEW_ITERS,
@@ -52,7 +54,7 @@ def broad_view_fit(assets: SMPLAssets, body_pose, betas, orient_init,
     best_params, best = run_fit_loop(
         assets, {"global_orient": orient_init, "cam_wp": cam_init},
         {"body_pose": body_pose, "betas": betas}, _assemble_broad,
-        silhouette, joints2d, fit_cfg, mask)
+        silhouette, joints2d, fit_cfg, mask, mesh=mesh)
     translation = weak_perspective_to_translation(
         best_params["cam_wp"], fit_cfg.focal_length, fit_cfg.proxy_wh)
     return FitResult(

@@ -16,8 +16,25 @@ bookkeeping, batched over players. The reference's quirks are kept:
 The loop is a plain Python loop on the device of its inputs. It renders the
 silhouette once per iteration, so on CUDA each of the two band kernels
 launches once per iteration. ``iters_per_call`` (a TPU-worker workaround in
-the JAX package) is accepted and has no effect; the JAX package's ``mesh``
-sharding is not ported.
+the JAX package) is accepted and has no effect.
+
+With ``mesh`` (``parallel/mesh.py``) every rank gets the global batch and
+fits its slice of the rows (and groups) over the data axis; the kernels
+launch at the rank's rows. The fit is not free of cross-row terms, so the
+ranks meet where the global batch meets:
+
+* the joints-2D term is a mean over every row's joints, or over the
+  visibility sum; the priors are means over every row. One all-reduce of
+  the local counts before the loop turns each local mean into the rank's
+  share of the global one;
+* with a prior on, every row's prior gradient scales with ``|total|`` of
+  the whole batch: one scalar all-reduce per iteration. Each rank's loss
+  holds its share of the log-variance terms (1 / data axis), so their sum
+  counts them once;
+* at the end one all-gather returns every row's result on every rank.
+
+Adam is elementwise and the best-iterate choice is per group, so both
+stay local.
 """
 
 from __future__ import annotations
@@ -35,6 +52,9 @@ from soccerplayershapepose_torch.ops.camera import (
     weak_perspective_to_translation)
 from soccerplayershapepose_torch.ops.segmentation import (
     silhouette_confusion_metrics)
+from soccerplayershapepose_torch.parallel.collectives import (
+    all_reduce_sum, data_parallel, data_sum, gather_dict_rows)
+from soccerplayershapepose_torch.parallel.mesh import data_sharding
 from soccerplayershapepose_torch.render.softras import render_silhouette
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.smpl.model import smpl_forward
@@ -157,8 +177,17 @@ def evaluate_fit(assets: SMPLAssets, body_pose, global_orient, betas, cam_wp,
             "translation": translation, "vertices": out.vertices}
 
 
+class _Shares(NamedTuple):
+    """A rank's share of the global batch's means (``run_fit_loop`` with a
+    mesh): of the joints-2D mean and of the priors' row means; 1 and 1 in
+    one process."""
+    joints2d: float = 1.0
+    rows: float = 1.0
+
+
 def _loss(assets, params, frozen, assemble, target_silhouette,
-          target_joints2d, row_mask, log_vars, loss_cfg, fit_cfg, it):
+          target_joints2d, row_mask, log_vars, loss_cfg, fit_cfg, it,
+          shares: _Shares = _Shares()):
     body_pose, global_orient, betas, cam_wp = assemble(params, frozen)
     ev = evaluate_fit(assets, body_pose, global_orient, betas, cam_wp,
                       target_silhouette, target_joints2d, fit_cfg)
@@ -176,28 +205,78 @@ def _loss(assets, params, frozen, assemble, target_silhouette,
                                         1.0)
     if fit_cfg.joints2d_scale != 1.0:
         task_scales["joints2D"] = fit_cfg.joints2d_scale
+    task_scales["joints2D"] = (task_scales.get("joints2D", 1.0)
+                               * shares.joints2d)
     total, _ = multi_task_loss(log_vars, outputs, labels, loss_cfg,
-                               task_scales or None)
+                               task_scales)
+
+    def row_mean(x):
+        return torch.mean(x * row_mask) * shares.rows
+
     # Priors scale with the detached main-loss magnitude (~1e9 at reference
     # weights), or they would vanish below fp32 update resolution.
     if fit_cfg.betas_prior or fit_cfg.rot_ortho_prior or (
             fit_cfg.pose_prior and "pose_prior_ref" in frozen):
-        mag = torch.abs(total).detach() + 1e-8
+        mag = torch.abs(data_sum(total)) + 1e-8
         if fit_cfg.betas_prior:
-            total = total + fit_cfg.betas_prior * mag * torch.mean(
-                torch.sum(betas ** 2, dim=-1) * row_mask)
+            total = total + fit_cfg.betas_prior * mag * row_mean(
+                torch.sum(betas ** 2, dim=-1))
         if fit_cfg.pose_prior and "pose_prior_ref" in frozen:
             dev = (body_pose - frozen["pose_prior_ref"]) ** 2
-            total = total + fit_cfg.pose_prior * mag * torch.mean(
-                torch.sum(dev, dim=(-3, -2, -1)) * row_mask)
+            total = total + fit_cfg.pose_prior * mag * row_mean(
+                torch.sum(dev, dim=(-3, -2, -1)))
         if fit_cfg.rot_ortho_prior:
             rots = torch.cat([global_orient, body_pose], dim=1)
             rtr = torch.einsum("bjki,bjkl->bjil", rots, rots)
             dev = (rtr - torch.eye(3, dtype=rots.dtype,
                                    device=rots.device)) ** 2
-            total = total + fit_cfg.rot_ortho_prior * mag * torch.mean(
-                torch.sum(dev, dim=(-2, -1)).mean(dim=-1) * row_mask)
+            total = total + fit_cfg.rot_ortho_prior * mag * row_mean(
+                torch.sum(dev, dim=(-2, -1)).mean(dim=-1))
     return total, ev
+
+
+def _shard_fit(mesh, rows, groups, group_size, fit_cfg, trainable, frozen,
+               tensors, target_joints2d):
+    """This rank's slice of the fit's inputs and its :class:`_Shares`:
+    trainables on the group axis, frozen tensors on whichever of the row
+    or group axis leads them, ``tensors`` (targets, masks) on the rows.
+    One all-reduce of the local counts."""
+    n_data = mesh.n_data
+    if rows % n_data or (groups % n_data if group_size > 1 else False):
+        raise ValueError(
+            f"rows={rows} (groups={groups}) must be a multiple of the "
+            f"data axis ({n_data}); pad the scene batch")
+    rs, gs = data_sharding(mesh, rows), data_sharding(mesh, groups)
+
+    def lead(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 1:
+            if x.shape[0] == rows:
+                return x[rs]
+            if x.shape[0] == groups:
+                return x[gs]
+        return x
+
+    trainable = {k: v[gs] for k, v in trainable.items()}
+    frozen = {k: lead(v) for k, v in frozen.items()}
+    tensors = [x[rs] for x in tensors]
+    j2d = target_joints2d[rs]
+    dev = j2d.device
+    # The joints-2D mean's denominator: every (row, joint, axis) element,
+    # or the visibility sum over them (at least 1); the priors': every row.
+    vis = fit_cfg.joint_conf_weighting and j2d.shape[-1] >= 3
+    if vis:
+        m = tensors[0][:, None] * j2d[..., 2]          # row mask × vis
+        j_local = 2.0 * torch.sum(m.to(torch.float64))
+    else:
+        j_local = torch.tensor(float(j2d[..., :2].numel()),
+                               dtype=torch.float64, device=dev)
+    local = torch.stack([j_local, torch.tensor(
+        float(j2d.shape[0]), dtype=torch.float64, device=dev)])
+    whole = all_reduce_sum(local, mesh.data_group)
+    lo = 1.0 if vis else 0.0
+    j_share = max(float(local[0]), lo) / max(float(whole[0]), lo)
+    shares = _Shares(joints2d=j_share, rows=float(local[1] / whole[1]))
+    return trainable, frozen, tensors, j2d, shares
 
 
 def run_fit_loop(assets: SMPLAssets,
@@ -209,7 +288,8 @@ def run_fit_loop(assets: SMPLAssets,
                  fit_cfg: FitConfig,
                  mask: Optional[torch.Tensor] = None,
                  group_size: int = 1,
-                 metric_weights: Optional[torch.Tensor] = None):
+                 metric_weights: Optional[torch.Tensor] = None,
+                 mesh=None):
     """Generic fitting loop on the device of its inputs.
 
     Args:
@@ -221,9 +301,14 @@ def run_fit_loop(assets: SMPLAssets,
       group_size: rows per player; metrics and best-iterate selection are
         reduced per group.
       metric_weights: (rows,) weights of the per-group metric mean.
+      mesh: a ``parallel.mesh.Mesh``: every rank passes the global batch
+        and fits its slice over the data axis (see the module docstring).
+        Rows must be a multiple of the data axis, and so must the groups
+        where ``group_size > 1``; pad with ``mask``.
 
     Returns:
-      (best params dict, dict of best metrics with (groups,) shapes).
+      (best params dict, dict of best metrics with (groups,) shapes), for
+      every row on every rank.
     """
     dev = target_joints2d.device
     rows = target_joints2d.shape[0]
@@ -232,6 +317,14 @@ def run_fit_loop(assets: SMPLAssets,
         mask = torch.ones((rows,), device=dev)
     if metric_weights is None:
         metric_weights = torch.ones((rows,), device=dev)
+    shares, group = _Shares(), None
+    if mesh is not None:
+        trainable, frozen, tensors, target_joints2d, shares = _shard_fit(
+            mesh, rows, groups, group_size, fit_cfg, trainable, frozen,
+            [mask, metric_weights, target_silhouette], target_joints2d)
+        mask, metric_weights, target_silhouette = tensors
+        rows, groups = rows // mesh.n_data, groups // mesh.n_data
+        group = mesh.data_group
 
     losses_on, log_vars = make_loss_state(fit_cfg.use_silhouette, device=dev)
     loss_cfg = MultiTaskLossConfig(losses_on=losses_on)
@@ -255,9 +348,10 @@ def run_fit_loop(assets: SMPLAssets,
             "init_iou": zeros, "init_joint_err": zeros}
     snaps = []
     for it in range(fit_cfg.iters):
-        total, ev = _loss(assets, params, frozen, assemble,
-                          target_silhouette, target_joints2d, mask, log_vars,
-                          loss_cfg, fit_cfg, it)
+        with data_parallel(group):
+            total, ev = _loss(assets, params, frozen, assemble,
+                              target_silhouette, target_joints2d, mask,
+                              log_vars, loss_cfg, fit_cfg, it, shares)
         opt.zero_grad(set_to_none=True)
         total.backward()
         with torch.no_grad():
@@ -298,7 +392,25 @@ def run_fit_loop(assets: SMPLAssets,
         best["snapshots"] = {
             k: torch.stack([s[k] for s in snaps])[::fit_cfg.snapshot_every]
             for k in params}
+    if mesh is not None:
+        best = _gather_best(best, group)
     return best["params"], best
+
+
+def _gather_best(best: dict, group) -> dict:
+    """Every rank's groups of the best dict, in one all-gather."""
+    flat = {(k, None): v for k, v in best.items() if not isinstance(v, dict)}
+    for part in ("params", "snapshots"):
+        flat.update({(part, k): v for k, v in best.get(part, {}).items()})
+    got = gather_dict_rows(flat, group,
+                           {k: 1 for k in flat if k[0] == "snapshots"})
+    out = {}
+    for (part, k), v in got.items():
+        if k is None:
+            out[part] = v
+        else:
+            out.setdefault(part, {})[k] = v
+    return out
 
 
 def fit_metrics(assets: SMPLAssets, init: FitInit, silhouette, joints2d,

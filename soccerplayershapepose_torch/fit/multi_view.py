@@ -85,7 +85,8 @@ def multi_view_fit(assets: SMPLAssets, init: MultiViewInit, silhouettes,
                    joints2d, fit_cfg: Optional[FitConfig] = None,
                    rounds: int = cfg.MULTI_VIEW_ROUNDS,
                    iters_per_phase: int = cfg.MULTI_VIEW_ITERS,
-                   mask=None, device: DeviceLike = None) -> MultiViewResult:
+                   mask=None, device: DeviceLike = None,
+                   mesh=None) -> MultiViewResult:
     """Fit V views of each player with a shared pose and shape.
 
     Args:
@@ -96,6 +97,9 @@ def multi_view_fit(assets: SMPLAssets, init: MultiViewInit, silhouettes,
       mask: (B,) validity of padded players.
       device: where to run; ``None`` means CUDA, and raises where there is
         none. Inputs are moved there.
+      mesh: a ``parallel.mesh.Mesh``: each phase's loop shards the players
+        (and so their B·V rows) over the data axis; B must be a multiple
+        of it.
     """
     dev = default_device(device)
     fit_cfg = fit_cfg or FitConfig(iters=iters_per_phase)
@@ -120,13 +124,13 @@ def multi_view_fit(assets: SMPLAssets, init: MultiViewInit, silhouettes,
             {"pose_sub": pose_sub, "betas": shared_betas,
              "pose_init": shared_pose},
             _assemble_mv_a, sil_flat, j2d_flat, phase_cfg,
-            mask=view_mask, group_size=v)
+            mask=view_mask, group_size=v, mesh=mesh)
         orient, cam_wp = a_params["orient"], a_params["cam"]
         b_params, _ = run_fit_loop(
             assets, {"pose_sub": pose_sub, "betas": shared_betas},
             {"orient": orient, "cam": cam_wp, "pose_init": shared_pose},
             _assemble_mv_b, sil_flat, j2d_flat, phase_cfg,
-            mask=view_mask, group_size=v)
+            mask=view_mask, group_size=v, mesh=mesh)
         pose_sub, shared_betas = b_params["pose_sub"], b_params["betas"]
 
     body_pose = splice_body_pose(pose_sub, shared_pose)

@@ -44,7 +44,8 @@ def single_view_fit(assets: SMPLAssets,
                     joints2d,
                     fit_cfg: Optional[FitConfig] = None,
                     mask=None,
-                    device: DeviceLike = None) -> FitResult:
+                    device: DeviceLike = None,
+                    mesh=None) -> FitResult:
     """Optimise each player-view independently (batched).
 
     Args:
@@ -54,6 +55,9 @@ def single_view_fit(assets: SMPLAssets,
       mask: (B,) validity of padded slots.
       device: where to run; ``None`` means CUDA, and raises where there is
         none. Inputs are moved there.
+      mesh: a ``parallel.mesh.Mesh``: each rank fits its slice of the
+        players over the data axis (``fit/engine.py:run_fit_loop``) and
+        returns all of them.
     """
     dev = default_device(device)
     fit_cfg = fit_cfg or FitConfig()
@@ -76,7 +80,7 @@ def single_view_fit(assets: SMPLAssets,
 
     best_params, best = run_fit_loop(assets, trainable, frozen,
                                      _assemble_single, silhouette, joints2d,
-                                     fit_cfg, mask)
+                                     fit_cfg, mask, mesh=mesh)
     translation = weak_perspective_to_translation(
         best_params["cam_wp"], fit_cfg.focal_length, fit_cfg.proxy_wh)
     snapshots = None

@@ -55,7 +55,7 @@ def _assemble_track(tr, f):
 
 def track_fit(assets: SMPLAssets, init: TrackInit, silhouettes, joints2d,
               fit_cfg: Optional[FitConfig] = None, frame_mask=None,
-              device: DeviceLike = None) -> TrackResult:
+              device: DeviceLike = None, mesh=None) -> TrackResult:
     """Fit a clip per player with one shared shape.
 
     Args:
@@ -64,6 +64,8 @@ def track_fit(assets: SMPLAssets, init: TrackInit, silhouettes, joints2d,
       frame_mask: (B, T) 1.0 for real frames, 0.0 for padding.
       device: where to run; ``None`` means CUDA, and raises where there is
         none. Inputs are moved there.
+      mesh: a ``parallel.mesh.Mesh``: each rank fits its slice of the
+        players (all of their frames) over the data axis.
     """
     dev = default_device(device)
     fit_cfg = fit_cfg or FitConfig(iters=cfg.SINGLE_VIEW_ITERS)
@@ -88,7 +90,7 @@ def track_fit(assets: SMPLAssets, init: TrackInit, silhouettes, joints2d,
         _assemble_track,
         silhouettes.reshape((b * t,) + tuple(silhouettes.shape[2:])),
         joints2d.reshape((b * t,) + tuple(joints2d.shape[2:])), fit_cfg,
-        mask=flat_mask, group_size=t, metric_weights=flat_mask)
+        mask=flat_mask, group_size=t, metric_weights=flat_mask, mesh=mesh)
 
     body_pose = splice_body_pose(
         tr["pose_sub"].reshape(b * t, 19, 3, 3),

@@ -11,7 +11,10 @@ quirks kept for parity with the reference criterion:
   pred and target in swapped BCE roles, added as ``−that·exp(−lv) + lv``.
 
 Log-variances start at ``−log(w + 1e-6)`` of the initial loss weights; the
-fitting loops keep them fixed.
+fitting loops keep them fixed. Inside ``parallel.collectives.data_parallel``
+a rank adds 1 / (its data group's size) of each log-variance, so that the
+ranks' losses sum to the global batch's, with each ``+ log_var`` counted
+once.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from soccerplayershapepose_torch import config as cfg
+from soccerplayershapepose_torch.parallel.collectives import data_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +68,7 @@ def multi_task_loss(log_vars: dict, outputs: dict, labels: dict,
     'silhouette' (B, H, W). ``task_scales`` multiplies a raw task loss
     before weighting.
     """
+    lv_share = 1.0 / data_size()
     total = 0.0
     loss_dict = {}
 
@@ -73,7 +78,7 @@ def multi_task_loss(log_vars: dict, outputs: dict, labels: dict,
         lv = log_vars[task]
         weighted = raw * torch.exp(-lv)
         loss_dict[task] = weighted
-        return (-weighted if negate else weighted) + lv
+        return (-weighted if negate else weighted) + lv * lv_share
 
     losses_on = config.losses_on
     if "verts" in losses_on:

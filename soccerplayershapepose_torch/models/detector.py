@@ -36,6 +36,7 @@ from soccerplayershapepose_torch.models.backbone import (
 from soccerplayershapepose_torch.models.perception import (
     ConvTower, _channels_last)
 from soccerplayershapepose_torch.ops.nms import nms
+from soccerplayershapepose_torch.parallel.collectives import data_sum
 
 STRIDE = 4
 
@@ -168,7 +169,9 @@ def detector_loss(out: DetectorOutput, targets: dict, mask: torch.Tensor):
     """CenterNet focal loss on the heatmap (positives where the target is
     ≥ 0.999, normalised by their count) + 0.1 · L1 of the size + L1 of the
     offset at the ground-truth cells, both over the valid boxes. Returns
-    ``(total, {"heat", "size", "offset"})``."""
+    ``(total, {"heat", "size", "offset"})``; inside
+    ``parallel.collectives.data_parallel`` both counts are the global
+    batch's, so each term is the rank's share of the global one."""
     mask = mask * targets["mask"]
     b, h, w, _ = out.center_logits.shape
     heat_t = targets["heat"]
@@ -178,7 +181,7 @@ def detector_loss(out: DetectorOutput, targets: dict, mask: torch.Tensor):
     pos_loss = -torch.log(p + eps) * (1 - p) ** 2 * pos
     neg_loss = -torch.log(1 - p + eps) * p ** 2 * (1 - heat_t) ** 4 \
         * (1.0 - pos)
-    n_pos = torch.clamp(torch.sum(pos), min=1.0)
+    n_pos = torch.clamp(data_sum(torch.sum(pos)), min=1.0)
     heat_loss = (torch.sum(pos_loss) + torch.sum(neg_loss)) / n_pos
 
     def take(t):
@@ -187,7 +190,7 @@ def detector_loss(out: DetectorOutput, targets: dict, mask: torch.Tensor):
             -1, -1, t.shape[-1]))
 
     m = mask[..., None]
-    n = torch.clamp(torch.sum(mask), min=1.0)
+    n = torch.clamp(data_sum(torch.sum(mask)), min=1.0)
     size_loss = torch.sum(torch.abs(take(out.size) - targets["size"]) * m) / n
     off_loss = torch.sum(torch.abs(take(out.offset) - targets["offset"])
                          * m) / n

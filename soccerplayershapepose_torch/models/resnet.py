@@ -8,6 +8,9 @@ explicit ``padding=[(1, 1), (1, 1)]`` does; the 1×1 projections pad nothing.
 Batch norm uses eps 1e-5 (flax momentum 0.9 is PyTorch momentum 0.1). In
 train mode its running variance takes the biased batch variance, as flax's
 does (:class:`BatchNorm2d`); eval mode is ``nn.BatchNorm2d``'s own.
+Inside ``parallel.collectives.data_parallel`` a train-mode batch norm
+normalises by the data group's global batch, as the JAX package's batch
+norm does under a sharded ``jit``.
 
 Each block keeps its convolutions and norms in two lists in the flax
 modules' order (``Conv_0``, ``Conv_1``, … then the projection), so the
@@ -23,6 +26,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from soccerplayershapepose_torch.parallel.collectives import (
+    current_data_group, global_batch_norm)
+
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
@@ -34,11 +40,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance (PyTorch's own update takes the unbiased one, n/(n−1) larger,
     14% at 2 rows of an 8 × 8 map). The batch is normalised by its biased
     variance either way; eval mode is unchanged. ``num_batches_tracked``
-    stays 0, as flax keeps no such count (the momentum is fixed)."""
+    stays 0, as flax keeps no such count (the momentum is fixed). Inside
+    ``data_parallel(group)`` the batch is the group's global batch
+    (``parallel/collectives.py:GlobalBatchNorm``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = current_data_group()
+        if group is not None:
+            return global_batch_norm(self, x, group)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1.0 - self.momentum).add_(

@@ -32,6 +32,14 @@ weights (``models/init.py:flax_init_``) and then every batch from one
 
 The weights are saved as a flat npz in the JAX package's layout (f16 on
 request), so either package loads the other's.
+
+:func:`shard_train_step` makes a step data-parallel over a mesh's data
+axis, as the JAX package's does under GSPMD: the state replicated, the
+batch split on its leading axis, batch norm over the global batch, every
+loss denominator (the keypoint positives, the IUV-valid crops, the
+foreground cells, the mean's elements) summed over the ranks before it
+divides, and the gradients summed, so the step equals the one-process
+step on the whole batch.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ from soccerplayershapepose_torch.models.detector import (
 from soccerplayershapepose_torch.models.init import flax_init_
 from soccerplayershapepose_torch.models.perception import (
     NUM_PARTS, STRIDE, ProxyNet)
+from soccerplayershapepose_torch.parallel.collectives import (
+    coalesced_sum, current_data_group, data_parallel, data_share, data_sum,
+    sum_gradients)
 from soccerplayershapepose_torch.pipeline.predict import on_device
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.train.optim import Adam
@@ -115,7 +126,9 @@ def proxynet_losses(model: ProxyNet, batch: dict, train: bool = True
     ``kp_visible (B, 17)``, and for the IUV head ``part (B, wh/4, wh/4)``,
     ``uv (B, wh/4, wh/4, 2)`` and optional ``iuv_valid (B,)``. In train
     mode batch norm normalises by the batch and updates its statistics.
-    Returns ``(total, {"kp", "mask"[, "part", "uv"], "total"})``."""
+    Returns ``(total, {"kp", "mask"[, "part", "uv"], "total"})``; inside
+    ``parallel.collectives.data_parallel`` the rank's share of the global
+    batch's losses."""
     out = model.train(train)(_nchw(batch["image"]))
     wh = batch["image"].shape[1]
     small = wh // STRIDE
@@ -134,10 +147,12 @@ def proxynet_losses(model: ProxyNet, batch: dict, train: bool = True
     pos_term = -torch.log(kp_p + eps) * (1 - kp_p) ** 2 * pos
     neg_term = -torch.log(1 - kp_p + eps) * kp_p ** 2 * (1 - kp_t) ** 4 \
         * (1 - pos)
-    n_pos = torch.clamp(torch.sum(pos), min=1.0)
+    n_pos = torch.clamp(data_sum(torch.sum(pos)), min=1.0)
     kp_loss = (torch.sum(pos_term) + torch.sum(neg_term)) / n_pos
     mask_loss = F.binary_cross_entropy_with_logits(
         out.mask_logits, batch["silhouette"])
+    mask_loss = mask_loss * data_share(out.mask_logits.numel(),
+                                       out.mask_logits.device)
     losses = {"kp": kp_loss, "mask": mask_loss}
     total = kp_loss + mask_loss
     if model.with_iuv and out.part_logits is not None:
@@ -145,7 +160,7 @@ def proxynet_losses(model: ProxyNet, batch: dict, train: bool = True
         iuv_valid = batch.get("iuv_valid")
         if iuv_valid is None:
             iuv_valid = torch.ones(part_t.shape[:1], device=part_t.device)
-        n_valid = torch.clamp(torch.sum(iuv_valid), min=1.0)
+        n_valid = torch.clamp(data_sum(torch.sum(iuv_valid)), min=1.0)
         ce = F.cross_entropy(_nchw(out.part_logits), part_t,
                              reduction="none")                   # (B, s, s)
         part_loss = torch.sum(ce.mean(dim=(1, 2)) * iuv_valid) / n_valid
@@ -156,7 +171,7 @@ def proxynet_losses(model: ProxyNet, batch: dict, train: bool = True
         uv_sel = torch.gather(uv_p, 3, sel[..., None, None].expand(
             -1, -1, -1, 1, 2))[..., 0, :]
         uv_loss = torch.sum(torch.abs(uv_sel - batch["uv"]) * fg[..., None]) \
-            / torch.clamp(torch.sum(fg) * 2.0, min=1.0)
+            / torch.clamp(data_sum(torch.sum(fg)) * 2.0, min=1.0)
         losses["part"] = part_loss
         losses["uv"] = uv_loss
         total = total + part_loss + uv_loss
@@ -167,8 +182,16 @@ def proxynet_losses(model: ProxyNet, batch: dict, train: bool = True
 def _update(state: PerceptionTrainState, total: torch.Tensor) -> None:
     state.opt.zero_grad()
     total.backward()
+    sum_gradients(state.opt.params, current_data_group())
     state.opt.step()
     state.step += 1
+
+
+def _global(losses: dict) -> dict:
+    """The losses detached; under ``data_parallel`` summed over the data
+    group (each rank's are its shares)."""
+    group = current_data_group()
+    return dict(zip(losses, coalesced_sum(list(losses.values()), group)))
 
 
 def make_proxynet_train_step():
@@ -178,7 +201,7 @@ def make_proxynet_train_step():
     def step(state: PerceptionTrainState, batch: dict):
         total, losses = proxynet_losses(state.model, batch, train=True)
         _update(state, total)
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, _global(losses)
     return step
 
 
@@ -200,9 +223,27 @@ def make_detector_train_step(min_visible_fill: float = MIN_VISIBLE_FILL):
         out = state.model.train(True)(_nchw(image))
         total, parts = detector_loss(out, targets, mask)
         _update(state, total)
-        parts = {k: v.detach() for k, v in parts.items()}
-        parts["total"] = total.detach()
-        return state, parts
+        return state, _global(dict(parts, total=total))
+    return step
+
+
+def shard_train_step(step_fn, mesh):
+    """A perception step (:func:`make_proxynet_train_step`'s or
+    :func:`make_detector_train_step`'s) made data-parallel over ``mesh``'s
+    data axis: ``step(state, batch)`` with the state replicated on every
+    rank (``parallel.mesh.replicate``) and ``batch`` the rank's slice of
+    the global batch (``parallel.mesh.shard_batch``; the batch must be a
+    multiple of the data axis). Inside, batch norm's moments and every
+    loss denominator are the global batch's, each rank's loss is its share
+    of the global loss and the gradients are summed over the data group,
+    so the replicas stay identical and the step equals the one-process
+    step on the whole batch (unlike per-replica batch norm, the DDP
+    idiom). The losses returned are the global batch's."""
+    group = mesh.data_group
+
+    def step(state: PerceptionTrainState, batch: dict):
+        with data_parallel(group):
+            return step_fn(state, batch)
     return step
 
 
