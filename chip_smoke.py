@@ -108,6 +108,21 @@ call and drives the port's two paths on the card:
   512^2 (K1/K2 at the players' and the views' rows), the IoU rising and
   the joint error falling, one player held to the CPU; and the command
   line's ``train-perception`` for both nets as subprocesses;
+* then the training drivers (``scripts/train_perception_torch.py``) in
+  this process: ``drive-regressor`` at the r05 fine-tune's settings
+  (``scripts/tpu_queue_r5.sh``: 16 crops of 256^2, lr 3e-5, warm from the
+  committed regressor, extracted batches through ProxyNet 256 into a keyed
+  cache) cut from 1500 steps to 6 in segments of 3, evaluated after each
+  segment on 1 batch; the same run as two ``regressor`` segments (return
+  codes 10 and 0), whose ``state.npz`` and ``weights_last.npz`` must equal
+  the drive's bit for bit (deterministic algorithms on); ``eval-regressor``
+  of ``weights/regressor_r05/weights_last.npz``, clean at 512^2 and
+  through ProxyNet at 256^2 (4 x 16 crops each), held to that folder's
+  ``clean_eval.json`` and ``e2e_eval.json``; ``drive-proxynet`` for 4
+  steps of 8 crops at 256^2 with two evaluations;
+  ``scripts/train_relation_torch.py`` (20 steps of v0 at its defaults, and
+  ``relate`` on the mint tree); K3 at the regressor's synthetic batch
+  (256^2 and 64^2, B = 16);
 * last, the data- and model-parallel layer (``parallel/``) at the default
   single-view stage's batch (32 rows, 512^2, 20 iterations with the mint
   chain's priors, deterministic algorithms on): the sharded fit over NCCL
@@ -491,6 +506,28 @@ PAR_DISTILL_B = 8         # the (1, 2) grid's distillation batch
 PAR_DISTILL_LR = 1e-3
 PAR_DISTILL_REL = 2e-5    # its losses; parameters as PT_FLIP_SHARE
 PAR_TIMEOUT_S = 300
+# train_perception: the training drivers (scripts/train_perception_torch.py)
+# in this process. The r05 regressor fine-tune (scripts/tpu_queue_r5.sh)
+# cut from 1500 steps to TPD_STEPS in segments of TPD_SEGMENT, its 4
+# evaluation batches to 1, warm from the committed regressor, its
+# extracted batches through ProxyNet 256 into a keyed cache of
+# TPD_EXTRACT_BATCHES slots; the same run again as two resumed segments,
+# bit for bit; the r05 weights' clean and e2e evaluations against their
+# records; a short ProxyNet drive.
+R05_WEIGHTS = os.path.join("weights", "regressor_r05", "weights_last.npz")
+R05_RECORDS = {"clean": os.path.join("weights", "regressor_r05",
+                                     "clean_eval.json"),
+               "e2e": os.path.join("weights", "regressor_r05",
+                                   "e2e_eval.json")}
+R05_METRICS = ("mpjpe_pa_mm", "pve_pa_mm", "mpjpe_mm", "pve_mm",
+               "joints2d_l2_px")
+R05_WH = {"clean": 512, "e2e": 256}
+R05_BATCHES, R05_BATCH = 4, 16
+TPD_STEPS, TPD_SEGMENT, TPD_BATCH, TPD_WH, TPD_LR = 6, 3, 16, 256, 3e-5
+TPD_EXTRACT_BATCHES, TPD_EVAL_BATCHES = 2, 1
+PND_STEPS, PND_SEGMENT, PND_BATCH, PND_WH = 4, 2, 8, 256
+K3_DRIVER_PLAIN_B = 2     # images of the plain K3 at the regressor's batch
+RS_STEPS, RS_EVAL_BATCHES = 20, 2   # train_relation_torch.py, v0 defaults
 
 _T0 = time.time()
 # What a run started and must stop or remove if the budget cuts it off:
@@ -1222,6 +1259,18 @@ def main() -> int:
                 "train_classifier_torch.py"))
         cls_script = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(cls_script)
+        spec = importlib.util.spec_from_file_location(
+            "train_perception_torch", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "scripts",
+                "train_perception_torch.py"))
+        tp_script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tp_script)
+        spec = importlib.util.spec_from_file_location(
+            "train_relation_torch", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "scripts",
+                "train_relation_torch.py"))
+        tr_script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tr_script)
     except (ImportError, FileNotFoundError) as e:
         print("chip_smoke: the port is not beside this script (%s)" % e,
               file=sys.stderr)
@@ -1232,7 +1281,8 @@ def main() -> int:
                  PN_RECORDS[256], PN_WEIGHTS[512], DET_WEIGHTS, DET_RECORD,
                  *FIT3D_RECORDS.values(), MINT_RECORD, E2E_CLIP_RECORD,
                  CLS_WEIGHTS, DET_META, TEX_RECORD, *REL_WEIGHTS.values(),
-                 *REL_RECORDS.values(), *RELATE_RECORDS.values()):
+                 *REL_RECORDS.values(), *RELATE_RECORDS.values(),
+                 R05_WEIGHTS, *R05_RECORDS.values()):
         if not os.path.isfile(os.path.join(root, path)):
             print("chip_smoke: %s is missing; the evaluations need the "
                   "committed weights and records" % path, file=sys.stderr)
@@ -4448,6 +4498,242 @@ def main() -> int:
         emit("cli_train_perception", t, runs=cli_runs, nvidia_smi=smi)
         return k12_paths, k3_paths, k12_new, k3_new
 
+    def driver_phases(work: str):
+        """The training drivers (``scripts/train_perception_torch.py``) in
+        this process: the r05 fine-tune cut short, the same run as resumed
+        segments, the r05 weights' evaluations and a ProxyNet drive.
+        Returns the K3 launches by path and K3's new shapes."""
+        import warnings
+        k3_paths, k3_new = {}, []
+        tmp = os.path.join(work, "driver")
+        warm = os.path.join(tmp, "warm")
+        os.makedirs(warm)
+        shutil.copyfile(os.path.join(root, WEIGHTS),
+                        os.path.join(warm, "weights_last.npz"))
+        cache = os.path.join(tmp, "cache")
+
+        def r05_argv(mode, ckpt):
+            return [mode, "--via-proxynet", os.path.join(root, PN_WEIGHTS[256]),
+                    "--finetune-from", warm, "--batch", str(TPD_BATCH),
+                    "--wh", str(TPD_WH), "--lr", str(TPD_LR),
+                    "--steps", str(TPD_STEPS), "--segment", str(TPD_SEGMENT),
+                    "--extract-cache", cache, "--extract-batches",
+                    str(TPD_EXTRACT_BATCHES), "--eval-batches",
+                    str(TPD_EVAL_BATCHES), "--log-every", "1",
+                    "--ckpt-dir", ckpt, "--device", DEVICE]
+
+        def read_log(ckpt):
+            with open(os.path.join(ckpt, "log.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        def npz(path):
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+
+        # Deterministic algorithms, warning (not raising) where an op has
+        # none; the warnings name such ops.
+        with warnings.catch_warnings(record=True) as nondet:
+            warnings.simplefilter("always")
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                # -- (a) drive-regressor: the r05 recipe, cut ------------
+                t = time.time()
+                ckpt_a = os.path.join(tmp, "drive")
+                args_a = tp_script.parse_args(r05_argv("drive-regressor",
+                                                       ckpt_a))
+                split_a = {}
+                rc_a, drive_s, _, drive_k3 = counted(
+                    lambda: tp_script.drive(args_a, "regressor",
+                                            stage_times=split_a))
+                log_a = read_log(ckpt_a)
+                steps_a = [r for r in log_a if r["kind"] == "regressor"]
+                evals_a = [r for r in log_a if r["kind"] == "eval-regressor"]
+                check(rc_a == 0 and [r["step"] for r in steps_a]
+                      == list(range(1, TPD_STEPS + 1))
+                      and all(np.isfinite(r["total"]) for r in steps_a),
+                      "drive-regressor: rc %s, steps %s" % (rc_a, steps_a))
+                check(len(evals_a) == TPD_STEPS // TPD_SEGMENT
+                      and all(np.isfinite(r["pve_mm"]) for r in evals_a),
+                      "drive-regressor logged %d evaluations: %s"
+                      % (len(evals_a), evals_a))
+                check(all(os.path.isfile(os.path.join(ckpt_a, f)) for f in (
+                    "best.json", "weights_best.npz", "state.npz",
+                    "weights_last.npz")), "drive-regressor: files missing")
+                picks = [bool(tp_script.use_extracted(0, i, args_a.p_real))
+                         for i in range(TPD_STEPS)]
+                slots = {i % TPD_EXTRACT_BATCHES
+                         for i in range(TPD_STEPS) if picks[i]}
+                # Two K3 passes (256^2, 64^2) per synthetic batch, per
+                # cache fill and per evaluation batch.
+                want_k3 = 2 * (picks.count(False) + len(slots)
+                               + len(evals_a) * TPD_EVAL_BATCHES)
+                check(drive_k3 == want_k3, "drive-regressor launched K3 %d "
+                      "times, its batches need %d" % (drive_k3, want_k3))
+                k3_paths["train_perception_drive"] = drive_k3
+                train_s = split_a.get("batch", 0.0) + split_a.get("step", 0.0)
+                emit("train_perception_drive", t, argv=r05_argv(
+                    "drive-regressor", "<ckpt>")[1:], rc=rc_a,
+                    wall_s=round(drive_s, 4),
+                    ms_per_step=round(train_s / TPD_STEPS * 1e3, 3),
+                    split_s={k: round(v, 4) for k, v in split_a.items()},
+                    extracted_steps=[i for i in range(TPD_STEPS)
+                                     if picks[i]],
+                    losses=[r["total"] for r in steps_a],
+                    evals=[{k: r[k] for k in ("pve_mm", "mpjpe_pa_mm",
+                                              "n_images")}
+                           for r in evals_a],
+                    k3_launches=drive_k3, nvidia_smi=smi)
+
+                # -- (b) the same run as two resumed segments -------------
+                t = time.time()
+                ckpt_b = os.path.join(tmp, "segments")
+                args_b = tp_script.parse_args(r05_argv("regressor", ckpt_b))
+                split_b = {}
+                rcs, seg_s, _, seg_k3 = counted(lambda: [
+                    tp_script.train_segment(args_b, "regressor",
+                                            stage_times=split_b)
+                    for _ in range(2)])
+                check(rcs == [tp_script.SEGMENT_RC, 0],
+                      "the segments returned %s" % rcs)
+                gaps = {}
+                for name in ("state.npz", "weights_last.npz"):
+                    a_, b_ = (npz(os.path.join(c, name))
+                              for c in (ckpt_a, ckpt_b))
+                    check(set(a_) == set(b_), "%s: keys differ" % name)
+                    gaps[name] = max(float(np.abs(
+                        a_[k].astype(np.float64)
+                        - b_[k].astype(np.float64)).max()) for k in a_)
+                check(all(v == 0.0 for v in gaps.values()),
+                      "the resumed segments differ from the drive: %s"
+                      % gaps)
+                check(seg_k3 == 2 * picks.count(False),
+                      "the segments launched K3 %d times for %d synthetic "
+                      "batches (the cache replays)" % (seg_k3,
+                                                        picks.count(False)))
+                k3_paths["train_perception_segments"] = seg_k3
+                seg_train_s = (split_b.get("batch", 0.0)
+                               + split_b.get("step", 0.0))
+                emit("train_perception_resume", t, rcs=rcs,
+                     wall_s=round(seg_s, 4),
+                     ms_per_step=round(seg_train_s / TPD_STEPS * 1e3, 3),
+                     max_abs_vs_drive=gaps, k3_launches=seg_k3,
+                     nondeterministic_ops=sorted({str(w.message)[:160]
+                                                  for w in nondet}),
+                     nvidia_smi=smi)
+            finally:
+                torch.use_deterministic_algorithms(False)
+
+        # -- (c) the r05 weights against their records --------------------
+        t = time.time()
+        r05 = {}
+        for arm in ("clean", "e2e"):
+            with open(os.path.join(root, R05_RECORDS[arm])) as f:
+                record = json.load(f)
+            argv = ["eval-regressor", "--weights",
+                    os.path.join(root, R05_WEIGHTS), "--wh", str(R05_WH[arm]),
+                    "--batch", str(R05_BATCH), "--eval-batches",
+                    str(R05_BATCHES), "--device", DEVICE]
+            if arm == "e2e":
+                argv += ["--via-proxynet", os.path.join(root, PN_WEIGHTS[256])]
+            res, s_, _, n3 = counted(lambda: tp_script.eval_regressor(
+                tp_script.parse_args(argv)))
+            check(n3 == 2 * R05_BATCHES, "the r05 %s evaluation launched "
+                  "K3 %d times" % (arm, n3))
+            for k in R05_METRICS:
+                check(np.isfinite(res[k]) and abs(res[k] - record[k])
+                      <= RECORD_REL * record[k],
+                      "r05 %s %s %.4g is not within %d%% of the record %.4g"
+                      % (arm, k, res[k], RECORD_REL * 100, record[k]))
+            k3_paths["r05_%s_eval" % arm] = n3
+            r05[arm] = {"wall_s": round(s_, 4), "n_images": res["n_images"],
+                        "wh": R05_WH[arm], "k3_launches": n3,
+                        "metrics": {k: res[k] for k in R05_METRICS},
+                        "record": {k: record[k] for k in R05_METRICS},
+                        "rel": {k: (res[k] - record[k]) / record[k]
+                                for k in R05_METRICS}}
+            if arm == "e2e":
+                r05[arm]["extraction_failures"] = res["extraction_failures"]
+        emit("r05_eval", t, weights=R05_WEIGHTS, arms=r05,
+             record_rel_tol=RECORD_REL, nvidia_smi=smi)
+
+        # -- (d) drive-proxynet from flax's initialisers ------------------
+        t = time.time()
+        ckpt_d = os.path.join(tmp, "proxynet")
+        args_d = tp_script.parse_args([
+            "drive-proxynet", "--steps", str(PND_STEPS), "--segment",
+            str(PND_SEGMENT), "--batch", str(PND_BATCH), "--wh", str(PND_WH),
+            "--eval-batches", "1", "--log-every", "1", "--ckpt-dir", ckpt_d,
+            "--device", DEVICE])
+        split_d = {}
+        rc_d, pn_s, _, pn_k3 = counted(lambda: tp_script.drive(
+            args_d, "proxynet", stage_times=split_d))
+        log_d = read_log(ckpt_d)
+        steps_d = [r for r in log_d if r["kind"] == "proxynet"]
+        evals_d = [r for r in log_d if r["kind"] == "eval-proxynet"]
+        check(rc_d == 0 and len(steps_d) == PND_STEPS
+              and all(np.isfinite(r["total"]) for r in steps_d),
+              "drive-proxynet: rc %s, steps %s" % (rc_d, steps_d))
+        check(len(evals_d) == PND_STEPS // PND_SEGMENT
+              and all("kp_pck@0.10bbox" in r and "mask_mean_iou" in r
+                      for r in evals_d),
+              "drive-proxynet logged %d evaluations: %s" % (len(evals_d),
+                                                            evals_d))
+        check(pn_k3 == 2 * (PND_STEPS + len(evals_d)),
+              "drive-proxynet launched K3 %d times" % pn_k3)
+        k3_paths["train_perception_proxynet"] = pn_k3
+        scores = [tp_script.score("proxynet", r) for r in evals_d]
+        emit("train_perception_proxynet", t, rc=rc_d,
+             wall_s=round(pn_s, 4),
+             ms_per_step=round((split_d.get("batch", 0.0)
+                                + split_d.get("step", 0.0))
+                               / PND_STEPS * 1e3, 3),
+             split_s={k: round(v, 4) for k, v in split_d.items()},
+             losses=[r["total"] for r in steps_d], scores=scores,
+             best=os.path.isfile(os.path.join(ckpt_d, "best.json")),
+             k3_launches=pn_k3, nvidia_smi=smi)
+
+        # -- the relation script: train, and relate on the mint tree -----
+        t = time.time()
+        rel_dir = os.path.join(tmp, "relation")
+        res_tr, tr_s, _, _ = counted(lambda: tr_script.cmd_train(
+            tr_script.parse_args(["train", "--steps", str(RS_STEPS),
+                                  "--eval-batches", str(RS_EVAL_BATCHES),
+                                  "--out-dir", rel_dir, "--device",
+                                  DEVICE])))
+        check(np.isfinite(res_tr["mse_out"]) and os.path.isfile(
+            os.path.join(rel_dir, "relation_v0.npz")),
+              "train_relation_torch.py train: %s" % res_tr)
+        res_rel, rel_s, _, _ = counted(lambda: tr_script.cmd_relate(
+            tr_script.parse_args(["relate", "--root",
+                                  os.path.join(work, "mint"), "--out-dir",
+                                  rel_dir, "--device", DEVICE])))
+        arms = ("without_relation", "with_relation")
+        check(all(np.isfinite(v) for a in arms for v in res_rel[a].values()
+                  if isinstance(v, float))
+              and res_rel["without_relation"].get("num_players", 0) > 0,
+              "train_relation_torch.py relate: %s" % res_rel)
+        emit("relation_script", t, steps=RS_STEPS,
+             train_wall_s=round(tr_s, 4), mse_in=res_tr["mse_in"],
+             mse_out=res_tr["mse_out"], relate_wall_s=round(rel_s, 4),
+             players=res_rel["without_relation"].get("num_players"),
+             nvidia_smi=smi)
+
+        # -- (e) K3 at the regressor's synthetic batch (256^2, B = 16) ----
+        t = time.time()
+        gen, _ = tp_script.step_generators(0, 0, dev)
+        rdraws = straps.sample_regressor_draws(gen, TPD_BATCH, TPD_WH)
+        rscn = synth.crop_scene(assets, synth.draws_to(rdraws.crop, dev),
+                                TPD_WH)
+        k3_new += [dict(k3_case(rscn, TPD_BATCH, wh_, scale,
+                                K3_DRIVER_PLAIN_B), path="train_perception")
+                   for wh_, scale in ((TPD_WH, 1.0), (TPD_WH // 4, 0.25))]
+        emit("k3_train_perception", t, shapes=[
+            {k: r[k] for k in ("b", "wh", "ms", "plain_b", "plain_ms",
+                               "bound_ms", "w_max_abs")}
+            for r in k3_new], nvidia_smi=smi)
+        return {}, k3_paths, [], k3_new
+
     # -- proxynet_eval: ProxyNet's held-out quality at 256² (and 512²) ------
     k3_launches_pn = {}
     for wh in PN_SHAPES:
@@ -4506,7 +4792,8 @@ def main() -> int:
                        lambda: clip_phases(
                            work, os.path.join(work, "rgb", "images")),
                        lambda: train_phases(work),
-                       lambda: perception_phases(work)):
+                       lambda: perception_phases(work),
+                       lambda: driver_phases(work)):
             phases = phases()
             k12_launches.update(phases[0])
             k3_fit_launches.update(phases[1])
@@ -4800,7 +5087,7 @@ def main() -> int:
                 "pairs_evaluated": r["pairs_evaluated"][name],
                 "bound_ms_chunk_level": r["bound_ms_chunk_level"][name]}
                 for r in k12]})
-    # K3 runs once at each pass shape per batch, on thirteen paths: the
+    # K3 runs once at each pass shape per batch, on fourteen paths: the
     # synthetic evaluation and ProxyNet's at 512² (512² and 128² passes),
     # the e2e evaluation and ProxyNet's at 256² (256² and 64²), the
     # detector's evaluation (one 448² pass per batch of 16 frames), the
@@ -4817,7 +5104,8 @@ def main() -> int:
     # trainers' synthesis inside every step (ProxyNet: 256² and 64²,
     # B = 8; the detector: 448², B = 4), the classifier's dataset, the
     # mixed real and synthetic batches and the extracted batch (256² and
-    # 64², B = 16). Its
+    # 64², B = 16), and the training drivers' steps, cache fills and
+    # evaluations (256² and 64² at B = 16 and 8, 512² and 128²). Its
     # times are the mean per launch over the pass shapes, its pairs the
     # sum over them; "shapes" gives each (the plain version's time on
     # plain_b of the b images), "launches_by_path" each path's count.

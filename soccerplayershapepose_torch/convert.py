@@ -139,14 +139,22 @@ def _read_flat(path: str) -> dict:
         return {k: z[k] for k in z.files}
 
 
+def regressor_variables(flat: dict) -> dict:
+    """A regressor npz's variables without the loss's ``log_vars/``
+    collection, which a training state may carry beside the parameters
+    and BN statistics; every other name stays for the strict load."""
+    return {k: v for k, v in flat.items() if not k.startswith("log_vars/")}
+
+
 def load_regressor_weights(path: str, device: DeviceLike = None
                            ) -> SingleInputRegressor:
     """Read a committed flax regressor npz → the regressor in eval mode on
     ``device`` (None: the CUDA card). The input width and depth are read
     from the weights (stem kernel's input channels; ``Bottleneck`` blocks
-    mean ResNet-50); IEF runs 3 iterations."""
+    mean ResNet-50); IEF runs 3 iterations. A ``log_vars/`` collection
+    beside the variables is left out (:func:`regressor_variables`)."""
     dev = default_device(device)
-    flat = _read_flat(path)
+    flat = regressor_variables(_read_flat(path))
     in_channels = int(flat["params/ResNet_0/Conv_0/kernel"].shape[2])
     layers = 50 if any("/Bottleneck_" in k for k in flat) else 18
     model = SingleInputRegressor(in_channels=in_channels,

@@ -78,12 +78,14 @@ class TrainState:
 
 
 def new_regressor(in_channels: int = 18, seed: int = 0,
-                  device: DeviceLike = None) -> SingleInputRegressor:
-    """A regressor drawn from flax's default initialisers
-    (``models/init.py``) with a CPU generator seeded ``seed``, on
-    ``device`` (None: the CUDA card)."""
+                  device: DeviceLike = None,
+                  resnet_layers: int = 18) -> SingleInputRegressor:
+    """A regressor (a ResNet-18 or -50 encoder) drawn from flax's default
+    initialisers (``models/init.py``) with a CPU generator seeded
+    ``seed``, on ``device`` (None: the CUDA card)."""
     dev = default_device(device)
-    model = SingleInputRegressor(in_channels=in_channels)
+    model = SingleInputRegressor(in_channels=in_channels,
+                                 resnet_layers=resnet_layers)
     flax_init_(model, torch.Generator().manual_seed(seed))
     return model.to(dev)
 

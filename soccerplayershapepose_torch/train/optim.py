@@ -8,15 +8,41 @@ in one place (a ``torch.optim.lr_scheduler`` stepped once too early or too
 late would shift the whole curve by one step) and gives its state plain
 names for checkpoints: ``mu`` and ``nu`` (the first and second moments, one
 tensor per parameter, in the parameters' order) and ``count``.
+
+:func:`warmup_cosine_decay` is ``optax.warmup_cosine_decay_schedule``, the
+schedule of the relation trainer and of the perception and regressor
+training drivers (``scripts/train_perception_torch.py``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Sequence, Union
 
 import torch
 
 Schedule = Union[float, Callable[[int], float]]
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule`` as a plain function of the
+    step count: linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then a cosine from ``peak_value`` to ``end_value``
+    over the remaining ``decay_steps − warmup_steps``, then flat."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - max(count, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(float(count - warmup_steps), float(span))
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / span))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 class Adam:

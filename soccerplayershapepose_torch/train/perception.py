@@ -248,18 +248,20 @@ def shard_train_step(step_fn, mesh):
 
 
 def new_proxynet(gen: torch.Generator, with_iuv: bool = True,
-                 device: DeviceLike = None) -> ProxyNet:
-    """ProxyNet drawn from flax's default initialisers with ``gen`` (a CPU
-    generator), on ``device`` (None: the CUDA card)."""
+                 device: DeviceLike = None, channels: int = 128) -> ProxyNet:
+    """ProxyNet (head width ``channels``) drawn from flax's default
+    initialisers with ``gen`` (a CPU generator), on ``device`` (None: the
+    CUDA card)."""
     dev = default_device(device)
-    return flax_init_(ProxyNet(with_iuv=with_iuv), gen).to(dev)
+    return flax_init_(ProxyNet(with_iuv=with_iuv, channels=channels),
+                      gen).to(dev)
 
 
-def new_detector(gen: torch.Generator,
-                 device: DeviceLike = None) -> PlayerDetector:
+def new_detector(gen: torch.Generator, device: DeviceLike = None,
+                 channels: int = 128) -> PlayerDetector:
     """The player detector drawn as :func:`new_proxynet` draws ProxyNet."""
     dev = default_device(device)
-    return flax_init_(PlayerDetector(), gen).to(dev)
+    return flax_init_(PlayerDetector(channels=channels), gen).to(dev)
 
 
 def save_perception_weights(path: str, model: PerceptionNet, dtype=None,

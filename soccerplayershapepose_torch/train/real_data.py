@@ -113,21 +113,30 @@ def proxy_tree_batches(image_root: str, proxy_root: str, batch: int,
 
 def mixed_batches(synth_fn: Callable[[int], dict],
                   real_iter: Optional[Iterator[dict]], p_real: float = 0.5,
-                  seed: int = 0) -> Iterator[dict]:
+                  seed: int = 0, start: int = 0) -> Iterator[dict]:
     """Mix synthetic batches (``synth_fn(step)``) with a real-proxy
     iterator: a real batch with probability ``p_real`` while the iterator
     lasts (``RandomState(seed + 1)`` decides), a synthetic one otherwise
-    and once it is exhausted."""
+    and once it is exhausted.
+
+    ``start`` resumes the mix at that step: the decisions of the steps
+    before it are replayed and the real iterator advanced past the real
+    batches they took, without calling ``synth_fn``, so the batches from
+    ``start`` on are those an unbroken run gives there."""
     rng = np.random.RandomState(seed + 1)
     step = 0
     while True:
         use_real = real_iter is not None and rng.rand() < p_real
         if use_real:
             try:
-                yield next(real_iter)
-                step += 1
-                continue
+                batch = next(real_iter)
             except StopIteration:
                 real_iter = None
-        yield synth_fn(step)
+            else:
+                if step >= start:
+                    yield batch
+                step += 1
+                continue
+        if step >= start:
+            yield synth_fn(step)
         step += 1

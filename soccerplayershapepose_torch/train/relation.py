@@ -25,8 +25,7 @@ seeded CPU generators.
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +42,8 @@ from soccerplayershapepose_torch.smpl.model import smpl_forward
 from soccerplayershapepose_torch.train.scenes import (
     OrientDraws, SceneDraws, orient_for_view, sample_orient_draws,
     sample_scene_draws, synth_scene_params)
-from soccerplayershapepose_torch.train.optim import Adam
+from soccerplayershapepose_torch.train.optim import (
+    Adam, warmup_cosine_decay)
 from soccerplayershapepose_torch.train.synth import (
     _normal, _uniform, draws_to)
 from soccerplayershapepose_torch.utils.precision import (
@@ -194,27 +194,6 @@ def evaluate_relation(relation: PoseRelationModule, assets: SMPLAssets,
 # Training
 # ---------------------------------------------------------------------------
 
-def warmup_cosine_decay(init_value: float, peak_value: float,
-                        warmup_steps: int, decay_steps: int,
-                        end_value: float = 0.0) -> Callable[[int], float]:
-    """``optax.warmup_cosine_decay_schedule`` as a plain function of the
-    step count: linear from ``init_value`` to ``peak_value`` over
-    ``warmup_steps``, then a cosine from ``peak_value`` to ``end_value``
-    over the remaining ``decay_steps − warmup_steps``, then flat."""
-    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    span = decay_steps - warmup_steps
-
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            frac = 1.0 - max(count, 0) / warmup_steps
-            return (init_value - peak_value) * frac + peak_value
-        c = min(float(count - warmup_steps), float(span))
-        cosine = 0.5 * (1.0 + math.cos(math.pi * c / span))
-        return peak_value * ((1.0 - alpha) * cosine + alpha)
-
-    return schedule
-
-
 @dataclasses.dataclass
 class RelationTrainState:
     relation: PoseRelationModule
@@ -277,26 +256,35 @@ def train_relation(steps: int = 3000, b: int = 8, n_players: int = 6,
                    lr: float = 1e-3, lift_dim: Optional[int] = None,
                    seed: int = 0, log_every: int = 200,
                    verbose: bool = True, device: DeviceLike = None,
-                   schedule_steps: Optional[int] = None):
+                   schedule_steps: Optional[int] = None,
+                   relation: Optional[PoseRelationModule] = None,
+                   batches: Optional[Iterable[dict]] = None):
     """Train a relation module on synthetic correlated scenes on ``device``
     (None: the CUDA card). ``lift_dim=1024`` selects v1
     (:data:`V1_KWARGS`). The initial weights come from a CPU generator
-    seeded ``seed``, the batches (b scenes of ``n_players``) from one
-    seeded ``seed + 1``. ``schedule_steps`` (default ``steps``) sets the
-    learning-rate schedule's length, so a run can stop after the first
-    ``steps`` of a longer schedule. Returns (relation,
-    history of {step, loss, input_mse} every ``log_every`` steps and at
-    the last)."""
+    seeded ``seed`` unless ``relation`` (a module to train in place) is
+    given, the batches (b scenes of ``n_players``) from one seeded
+    ``seed + 1`` unless ``batches`` (one dict of tensors per step) are
+    given. ``schedule_steps`` (default ``steps``) sets the learning-rate
+    schedule's length, so a run can stop after the first ``steps`` of a
+    longer schedule. Returns (relation, history of {step, loss,
+    input_mse} every ``log_every`` steps and at the last)."""
     dev = default_device(device)
-    relation = new_relation(lift_dim, torch.Generator().manual_seed(seed),
-                            dev)
-    state = make_relation_state(relation, schedule_steps or steps, lr)
+    if relation is None:
+        relation = new_relation(lift_dim, torch.Generator().manual_seed(seed),
+                                dev)
+    state = make_relation_state(relation.to(dev), schedule_steps or steps,
+                                lr)
     step_fn = make_relation_train_step()
     data_gen = torch.Generator().manual_seed(seed + 1)
+    given = None if batches is None else iter(batches)
     history = []
     for i in range(steps):
-        batch = synth_relation_batch(
-            sample_relation_draws(data_gen, b, n_players), device=dev)
+        if given is None:
+            batch = synth_relation_batch(
+                sample_relation_draws(data_gen, b, n_players), device=dev)
+        else:
+            batch = {k: v.to(dev) for k, v in next(given).items()}
         state, metrics = step_fn(state, batch)
         if (i + 1) % log_every == 0 or i + 1 == steps:
             rec = {"step": i + 1,

@@ -175,9 +175,10 @@ class RegressorDraws(NamedTuple):
 
 
 def sample_regressor_draws(gen: torch.Generator, b: int, wh: int,
-                           corrupt: bool = True) -> RegressorDraws:
+                           corrupt: bool = True,
+                           occluders: bool = True) -> RegressorDraws:
     return RegressorDraws(
-        sample_crop_draws(gen, b),
+        sample_crop_draws(gen, b, occluders=occluders),
         sample_corruption_draws(gen, b, wh) if corrupt else None)
 
 

@@ -1,6 +1,8 @@
 """Guards of the PyTorch port: what it imports, what it ships, and how it
 refuses to run a kernel path where no kernel can run."""
 
+import glob
+import json
 import os
 import subprocess
 import sys
@@ -70,6 +72,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+# The training scripts of the port, loaded as modules (their imports of the
+# port are inside their functions; those run in tests/test_torch_train_*).
+import glob, importlib.util
+for path in sorted(glob.glob(os.path.join("scripts", "*_torch.py"))):
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(names))
 """
 
@@ -104,6 +113,7 @@ def test_port_imports_nothing_of_jax():
 def test_port_sources_name_no_forbidden_module(needle):
     paths = [p for p in _package_files() if p.endswith(".py")]
     paths.append(os.path.join(REPO, "chip_smoke.py"))
+    paths += _torch_scripts()
     for p in paths:
         with open(p) as f:
             src = f.read()
@@ -115,6 +125,45 @@ def test_port_sources_name_no_forbidden_module(needle):
                     and "from soccerplayershapepose_tpu" not in code), p
         else:
             assert needle not in code, p
+
+
+def _torch_scripts():
+    return sorted(glob.glob(os.path.join(REPO, "scripts", "*_torch.py")))
+
+
+@pytest.mark.parametrize("script", ["train_perception_torch.py",
+                                    "train_relation_torch.py",
+                                    "train_classifier_torch.py",
+                                    "distill_circle_torch.py"])
+def test_torch_script_runs_without_jax(script, tmp_path):
+    """Each script of the port under an import hook that refuses JAX, the
+    JAX package, OpenCV and torchvision: loaded, its ``--help`` printed,
+    and the training drivers' small runs on the CPU (a relation training
+    of 2 steps; a regressor evaluation of 1 batch of 2 crops at 32²)."""
+    path = os.path.join(REPO, "scripts", script)
+    assert path in _torch_scripts()
+    runs = {"train_relation_torch.py": [
+        "train", "--steps", "2", "--batch", "1", "--players", "2",
+        "--eval-batches", "1", "--out-dir", str(tmp_path), "--cpu"],
+        "train_perception_torch.py": [
+        "eval-regressor", "--weights", os.path.join(
+            REPO, "weights", "regressor_18ch_f16.npz"), "--wh", "32",
+        "--batch", "2", "--eval-batches", "1", "--device", "cpu"]}
+    code = _GUARD.split("import soccerplayershapepose_torch as pkg")[0] + (
+        "import runpy\nsys.argv = %r\n"
+        "try:\n    runpy.run_path(%r, run_name='__main__')\n"
+        "except SystemExit as e:\n    assert not e.code, e.code\n"
+        % ([path] + runs.get(script, ["--help"]), path))
+    # One thread: the suite's workers share the cores, and oversubscribed
+    # OpenMP threads spin.
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    if script in runs:
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        assert line["n_images"] == 2 if "eval" in runs[script][0] \
+            else line["variant"] == "v0"
 
 
 def test_package_files_are_small_sources():
