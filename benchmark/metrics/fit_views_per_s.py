@@ -1,0 +1,8 @@
+"""Player-views fitted per second: every view of the window's batches
+over the window's whole time."""
+
+from benchmark.stats import rate
+
+
+def read(ctx):
+    return rate(ctx["units"], ctx["window_s"])

@@ -1,0 +1,9 @@
+"""Milliseconds per frame of the pipeline's ``proxynet`` stage, from its
+synchronised stage times over the traced window."""
+
+
+def read(ctx):
+    spans = (ctx.get("spans") or {}).get("proxynet")
+    if not spans:
+        return None
+    return 1e3 * sum(spans) / ctx["units"]
