@@ -581,17 +581,18 @@ class Trainer:
         """Steps ``state.step`` .. ``end`` − 1, logged every
         ``--log-every``, checkpointed every ``--save-every`` and at the
         end."""
-        from soccerplayershapepose_torch.train.straps import _lap
+        from soccerplayershapepose_torch.utils import profiling
         args, kind = self.args, self.kind
         start = self.state.step
         t0 = time.time()
-        t = _lap(self.stage_times, "batch", time.perf_counter(), self.dev)
+        stage = profiling.Stages(self.stage_times, self.dev,
+                                 prefix=f"{kind}.")
         losses = None
         for i in range(start, end):
-            batch = to_device(self.batch_fn(i), self.dev)
-            t = _lap(self.stage_times, "batch", t, self.dev)
-            losses = self.step_fn(self.state, self.assets, batch)
-            t = _lap(self.stage_times, "step", t, self.dev)
+            with stage("batch"):
+                batch = to_device(self.batch_fn(i), self.dev)
+            with stage("step"):
+                losses = self.step_fn(self.state, self.assets, batch)
             if args.log_every and (i + 1) % args.log_every == 0:
                 vals = {k: float(v) for k, v in losses.items()}
                 rate = (i + 1 - start) / (time.time() - t0)

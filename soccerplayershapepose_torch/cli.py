@@ -16,6 +16,11 @@ the same ``<root>/<game>/<scene>/<player>/<view>`` trees:
     python -m soccerplayershapepose_torch train --image-root ... --target-root ...
     python -m soccerplayershapepose_torch train-perception --out ... --model proxynet|detector
 
+``--trace-dir DIR`` before the command profiles it (``torch.profiler``
+with the port's spans, ``utils/profiling.py``), writes
+``DIR/trace.json`` and prints the spans (path, count, total and self ms)
+and counters on standard error.
+
 Each stage runs on ``--device`` (default ``cuda``; it refuses to start
 where there is no card rather than fall back to the CPU; ``--device cpu``
 runs the plain PyTorch path) and prints one JSON line last. The regressor
@@ -188,6 +193,9 @@ def main(argv=None) -> int:
     from soccerplayershapepose_torch import config as cfg
 
     parser = argparse.ArgumentParser(prog="soccerplayershapepose_torch")
+    parser.add_argument("--trace-dir", default=None, metavar="DIR",
+                        help="profile the command: write DIR/trace.json "
+                             "and print its spans on standard error")
     sub = parser.add_subparsers(dest="command", required=True)
 
     for name in ("predict", "single-view", "broad-view"):
@@ -306,6 +314,17 @@ def main(argv=None) -> int:
     _add_device_arg(p)
 
     args = parser.parse_args(argv)
+    if args.trace_dir is None:
+        return _run(args)
+    from soccerplayershapepose_torch.utils import profiling
+    with profiling.trace(args.trace_dir) as rec:
+        rc = _run(args)
+    print(profiling.format_summary(rec.summary()), file=sys.stderr)
+    return rc
+
+
+def _run(args) -> int:
+    from soccerplayershapepose_torch import config as cfg
 
     if args.command == "harvest-frames":
         from soccerplayershapepose_torch.pipeline.classification import \

@@ -58,6 +58,7 @@ from soccerplayershapepose_torch.parallel.mesh import data_sharding
 from soccerplayershapepose_torch.render.softras import render_silhouette
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.smpl.model import smpl_forward
+from soccerplayershapepose_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,6 +280,40 @@ def _shard_fit(mesh, rows, groups, group_size, fit_cfg, trainable, frozen,
     return trainable, frozen, tensors, j2d, shares
 
 
+def _select_best(best: dict, params: dict, ev: dict, target_joints2d,
+                 it: int, reduce_groups: Callable, groups: int,
+                 fit_cfg: FitConfig) -> dict:
+    """The best-iterate bookkeeping after iteration ``it``: a group keeps
+    the iterate iff its every tracked metric is ≤ its best so far."""
+    ev = {k: v.detach() for k, v in ev.items()}
+    j2d_l2 = reduce_groups(torch.mean(torch.linalg.vector_norm(
+        ev["pred_j2d"] - target_joints2d[..., :2], dim=-1), dim=-1))
+    bce = (reduce_groups(ev["bce_score"]) if fit_cfg.use_silhouette
+           else torch.zeros_like(j2d_l2))
+    iou = reduce_groups(ev["iou"])
+    jerr = reduce_groups(ev["joint_err"])
+    improve = (j2d_l2 <= best["m0"]) & (bce <= best["m1"])
+    if fit_cfg.save_every:
+        improve = torch.ones_like(improve)
+
+    def select(new, old):
+        return torch.where(
+            improve.reshape((groups,) + (1,) * (new.dim() - 1)), new, old)
+
+    return {
+        "m0": torch.where(improve, j2d_l2, best["m0"]),
+        "m1": torch.where(improve, bce, best["m1"]),
+        "iou": torch.where(improve, iou, best["iou"]),
+        "joint_err": torch.where(improve, jerr, best["joint_err"]),
+        "iter": torch.where(improve, torch.full_like(best["iter"], it + 1),
+                            best["iter"]),
+        "params": {k: select(params[k].detach(), best["params"][k])
+                   for k in params},
+        "init_iou": iou if it == 0 else best["init_iou"],
+        "init_joint_err": jerr if it == 0 else best["init_joint_err"],
+    }
+
+
 def run_fit_loop(assets: SMPLAssets,
                  trainable: dict,
                  frozen: dict,
@@ -348,46 +383,22 @@ def run_fit_loop(assets: SMPLAssets,
             "init_iou": zeros, "init_joint_err": zeros}
     snaps = []
     for it in range(fit_cfg.iters):
-        with data_parallel(group):
-            total, ev = _loss(assets, params, frozen, assemble,
-                              target_silhouette, target_joints2d, mask,
-                              log_vars, loss_cfg, fit_cfg, it, shares)
-        opt.zero_grad(set_to_none=True)
-        total.backward()
-        with torch.no_grad():
-            ev = {k: v.detach() for k, v in ev.items()}
-            j2d_l2 = reduce_groups(torch.mean(torch.linalg.vector_norm(
-                ev["pred_j2d"] - target_joints2d[..., :2], dim=-1), dim=-1))
-            bce = (reduce_groups(ev["bce_score"]) if fit_cfg.use_silhouette
-                   else torch.zeros_like(j2d_l2))
-            iou = reduce_groups(ev["iou"])
-            jerr = reduce_groups(ev["joint_err"])
-            improve = (j2d_l2 <= best["m0"]) & (bce <= best["m1"])
-            if fit_cfg.save_every:
-                improve = torch.ones_like(improve)
-
-            def select(new, old):
-                return torch.where(
-                    improve.reshape((groups,) + (1,) * (new.dim() - 1)),
-                    new, old)
-
-            best = {
-                "m0": torch.where(improve, j2d_l2, best["m0"]),
-                "m1": torch.where(improve, bce, best["m1"]),
-                "iou": torch.where(improve, iou, best["iou"]),
-                "joint_err": torch.where(improve, jerr, best["joint_err"]),
-                "iter": torch.where(improve, torch.full_like(best["iter"],
-                                                             it + 1),
-                                    best["iter"]),
-                "params": {k: select(params[k].detach(), best["params"][k])
-                           for k in params},
-                "init_iou": iou if it == 0 else best["init_iou"],
-                "init_joint_err": jerr if it == 0 else best["init_joint_err"],
-            }
-            if fit_cfg.snapshot_every:
-                snaps.append({k: v.detach().clone()
-                              for k, v in params.items()})
-        opt.step()
+        with profiling.span("fit.iter"):
+            with profiling.span("fit.forward"), data_parallel(group):
+                total, ev = _loss(assets, params, frozen, assemble,
+                                  target_silhouette, target_joints2d, mask,
+                                  log_vars, loss_cfg, fit_cfg, it, shares)
+            opt.zero_grad(set_to_none=True)
+            with profiling.span("fit.backward"):
+                total.backward()
+            with profiling.span("fit.select"), torch.no_grad():
+                best = _select_best(best, params, ev, target_joints2d, it,
+                                    reduce_groups, groups, fit_cfg)
+                if fit_cfg.snapshot_every:
+                    snaps.append({k: v.detach().clone()
+                                  for k, v in params.items()})
+            with profiling.span("fit.step"):
+                opt.step()
     if fit_cfg.snapshot_every:
         best["snapshots"] = {
             k: torch.stack([s[k] for s in snaps])[::fit_cfg.snapshot_every]

@@ -23,7 +23,6 @@ convolutions and matrix products are cuDNN and cuBLAS calls.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -38,6 +37,7 @@ from soccerplayershapepose_torch.ops.roi_align import roi_align
 from soccerplayershapepose_torch.pipeline.predict import (
     on_device, predict_smpl)
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
+from soccerplayershapepose_torch.utils import profiling
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, as_f32, default_device)
 
@@ -79,8 +79,13 @@ def build_frame_pipeline(detector: PlayerDetector, proxynet: ProxyNet,
     ``frames``: (F, H, W, 3) float in [0, 1] (numpy or tensor), H and W
     divisible by 32. With ``stage_times`` (a dict) each call synchronises
     the device after every stage and adds the stage's seconds under
-    ``detect`` (detector and decode), ``roi_align``, ``proxynet``
-    (ProxyNet and its decoders) and ``predict``; without it nothing waits.
+    ``detect`` (the frame's copy, detector and decode), ``roi_align``,
+    ``proxynet`` (ProxyNet and its decoders) and ``predict``; without it
+    nothing waits. A call is the span ``frame``, each stage the span
+    ``frame.<stage>``, with ``frame.decode`` (``decode_detections`` and
+    the square boxes) and ``frame.proxy_decode`` inside; the counters
+    ``frame.slots`` and ``frame.valid_slots`` add the F × K slots computed
+    and those holding a player (``utils/profiling.py``).
     """
     dev = default_device(device)
     detector = detector.to(dev).eval()
@@ -88,42 +93,41 @@ def build_frame_pipeline(detector: PlayerDetector, proxynet: ProxyNet,
     regressor = regressor.to(dev).eval()
     k = max_players
 
-    def lap(name, t0):
-        if stage_times is None:
-            return t0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        stage_times[name] = stage_times.get(name, 0.0) + now - t0
-        return now
+    stage = profiling.Stages(stage_times, dev, prefix="frame.")
 
     @torch.no_grad()
     def fn(assets: SMPLAssets, frames) -> FramePipelineOutput:
-        t = time.perf_counter()
-        frames = as_f32(frames, dev)
-        f = frames.shape[0]
-        dets = decode_detections(detector(frames.permute(0, 3, 1, 2)),
-                                 top_k=k)
-        sq = _square_boxes(dets.boxes, border)                # (F, K, 4)
-        t = lap("detect", t)
-        crops = roi_align(frames, sq, output_size=crop_wh, sampling_ratio=1)
-        crops = crops.reshape(f * k, crop_wh, crop_wh, 3)
-        t = lap("roi_align", t)
-        p_out = proxynet(crops.permute(0, 3, 1, 2))
-        sil = decode_silhouette(p_out.mask_logits)            # (FK, c, c)
-        kps = decode_keypoints(p_out.kp_logits,
-                               stride=crop_wh // p_out.kp_logits.shape[1])
-        t = lap("proxynet", t)
-        pred = predict_smpl(regressor, on_device(assets, dev), sil, kps,
-                            proxy_wh=crop_wh, device=dev)
-        lap("predict", t)
+        with profiling.span("frame"):
+            with stage("detect"):
+                frames = as_f32(frames, dev)
+                f = frames.shape[0]
+                out = detector(frames.permute(0, 3, 1, 2))
+                with profiling.span("frame.decode"):
+                    dets = decode_detections(out, top_k=k)
+                    sq = _square_boxes(dets.boxes, border)    # (F, K, 4)
+            with stage("roi_align"):
+                crops = roi_align(frames, sq, output_size=crop_wh,
+                                  sampling_ratio=1)
+                crops = crops.reshape(f * k, crop_wh, crop_wh, 3)
+            with stage("proxynet"):
+                p_out = proxynet(crops.permute(0, 3, 1, 2))
+                with profiling.span("frame.proxy_decode"):
+                    sil = decode_silhouette(p_out.mask_logits)  # (FK, c, c)
+                    kps = decode_keypoints(
+                        p_out.kp_logits,
+                        stride=crop_wh // p_out.kp_logits.shape[1])
+            with stage("predict"):
+                pred = predict_smpl(regressor, on_device(assets, dev), sil,
+                                    kps, proxy_wh=crop_wh, device=dev)
+            valid = dets.scores >= score_thresh
+            profiling.count("frame.slots", f * k)
+            profiling.count("frame.valid_slots", valid)
         return FramePipelineOutput(
             vertices=pred.vertices.reshape(f, k, -1, 3),
             joints2d=pred.joints2d_kprcnn.reshape(f, k, 17, 2),
             pose_rotmats=pred.pose_rotmats.reshape(f, k, 24, 3, 3),
             betas=pred.betas.reshape(f, k, 10),
             cam_wp=pred.cam_wp.reshape(f, k, 3),
-            boxes=sq, scores=dets.scores,
-            valid=dets.scores >= score_thresh)
+            boxes=sq, scores=dets.scores, valid=valid)
 
     return fn

@@ -26,6 +26,7 @@ from soccerplayershapepose_torch.pipeline.proxy import (
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.smpl.model import (
     smpl_forward, smpl_shape_only)
+from soccerplayershapepose_torch.utils import profiling
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, as_f32, default_device)
 
@@ -56,30 +57,35 @@ def predict_smpl(regressor: SingleInputRegressor, assets: SMPLAssets,
     ``silhouette`` (B, proxy_wh, proxy_wh), ``joints2d`` (B, 17, 2|3) in
     proxy_wh pixels, optional ``iuv`` (B, 3, proxy_wh, proxy_wh); numpy
     arrays or tensors. The regressor (moved to ``device``) runs in eval
-    mode.
+    mode. The call is the span ``predict``, with ``predict.proxy``,
+    ``predict.regressor`` and ``smpl.forward`` inside.
     """
     dev = default_device(device)
     assets = on_device(assets, dev)
     regressor = regressor.to(dev).eval()
-    proxy = create_proxy_representation(
-        as_f32(silhouette, dev), as_f32(joints2d, dev), in_wh=proxy_wh,
-        out_wh=cfg.REGRESSOR_IMG_WH,
-        iuv=None if iuv is None else as_f32(iuv, dev),
-        include_silhouette=regressor.in_channels != 20)
-    init = default_initial_params(assets.mean_pose_rot6d, assets.mean_shape)
-    cam_wp, pose6d, betas = regressor(proxy, init)
+    with profiling.span("predict"):
+        with profiling.span("predict.proxy"):
+            proxy = create_proxy_representation(
+                as_f32(silhouette, dev), as_f32(joints2d, dev),
+                in_wh=proxy_wh, out_wh=cfg.REGRESSOR_IMG_WH,
+                iuv=None if iuv is None else as_f32(iuv, dev),
+                include_silhouette=regressor.in_channels != 20)
+        init = default_initial_params(assets.mean_pose_rot6d,
+                                      assets.mean_shape)
+        with profiling.span("predict.regressor"):
+            cam_wp, pose6d, betas = regressor(proxy, init)
 
-    rotmats = rot6d_to_rotmat(pose6d.reshape(-1, cfg.NUM_JOINTS, 6))
-    out = smpl_forward(assets, betas, rotmats[:, 1:], rotmats[:, :1])
-    j2d = orthographic_project(out.joints, cam_wp)[
-        :, list(cfg.SMPL_TO_KPRCNN_MAP)]
-    j2d = undo_keypoint_normalisation(j2d, proxy_wh)
-    translation = weak_perspective_to_translation(
-        cam_wp, cfg.FOCAL_LENGTH, proxy_wh)
-    return PredictOutput(
-        vertices=out.vertices, joints=out.joints, joints2d_kprcnn=j2d,
-        cam_wp=cam_wp, translation=translation, pose_rotmats=rotmats,
-        betas=betas, reposed_vertices=smpl_shape_only(assets, betas))
+        rotmats = rot6d_to_rotmat(pose6d.reshape(-1, cfg.NUM_JOINTS, 6))
+        out = smpl_forward(assets, betas, rotmats[:, 1:], rotmats[:, :1])
+        j2d = orthographic_project(out.joints, cam_wp)[
+            :, list(cfg.SMPL_TO_KPRCNN_MAP)]
+        j2d = undo_keypoint_normalisation(j2d, proxy_wh)
+        translation = weak_perspective_to_translation(
+            cam_wp, cfg.FOCAL_LENGTH, proxy_wh)
+        return PredictOutput(
+            vertices=out.vertices, joints=out.joints, joints2d_kprcnn=j2d,
+            cam_wp=cam_wp, translation=translation, pose_rotmats=rotmats,
+            betas=betas, reposed_vertices=smpl_shape_only(assets, betas))
 
 
 def build_predictor(in_channels: int = 18, resnet_layers: int = 18,

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from soccerplayershapepose_torch.render.softras import D_MAX, pixel_grid
+from soccerplayershapepose_torch.utils import profiling
 
 BAND_H = 8
 TILE_W = 32
@@ -449,34 +450,39 @@ class SoftSilhouetteBand(torch.autograd.Function):
     The sort, cull, chunk ranges and face records are computed once in
     forward and the records saved for backward (the role of
     ``soft_silhouette_fast``'s residuals). The un-sort and the scatter onto
-    vertices stay in torch.
+    vertices stay in torch. Forward is the span ``raster.fwd`` and
+    backward ``raster.bwd`` (``utils/profiling.py``).
     """
 
     @staticmethod
     def forward(ctx, verts2d, faces, img_wh, sigma, backface_cull):
-        sigma_px = float(sigma) * (img_wh / 2.0) ** 2
-        args, order = band_inputs(verts2d.detach(), faces, img_wh, sigma_px,
-                                  backface_cull)
-        s = band_raster_fwd(*args, img_wh, sigma_px, support_margin(sigma_px))
-        ctx.save_for_backward(args[0], order, s, faces)
-        ctx.meta = (img_wh, sigma_px, verts2d.shape[1])
-        return s
+        with profiling.span("raster.fwd"):
+            sigma_px = float(sigma) * (img_wh / 2.0) ** 2
+            args, order = band_inputs(verts2d.detach(), faces, img_wh,
+                                      sigma_px, backface_cull)
+            s = band_raster_fwd(*args, img_wh, sigma_px,
+                                support_margin(sigma_px))
+            ctx.save_for_backward(args[0], order, s, faces)
+            ctx.meta = (img_wh, sigma_px, verts2d.shape[1])
+            return s
 
     @staticmethod
     def backward(ctx, g):
-        fc, order, s, faces = ctx.saved_tensors
-        img_wh, sigma_px, n_verts = ctx.meta
-        gs = (g * (1.0 - s)).to(torch.float32).contiguous()
-        dtri_sorted = band_raster_bwd(fc, gs, img_wh, sigma_px)
-        b, f = order.shape
-        dtri = torch.zeros((b, f, 6), dtype=torch.float32, device=fc.device)
-        dtri.scatter_(1, order[..., None].expand(-1, -1, 6),
-                      dtri_sorted[:, :f])
-        dverts = torch.zeros((b, n_verts, 2), dtype=torch.float32,
-                             device=fc.device)
-        dverts.index_add_(1, faces.reshape(-1).to(torch.long),
-                          dtri.reshape(b, f * 3, 2))
-        return dverts, None, None, None, None
+        with profiling.span("raster.bwd"):
+            fc, order, s, faces = ctx.saved_tensors
+            img_wh, sigma_px, n_verts = ctx.meta
+            gs = (g * (1.0 - s)).to(torch.float32).contiguous()
+            dtri_sorted = band_raster_bwd(fc, gs, img_wh, sigma_px)
+            b, f = order.shape
+            dtri = torch.zeros((b, f, 6), dtype=torch.float32,
+                               device=fc.device)
+            dtri.scatter_(1, order[..., None].expand(-1, -1, 6),
+                          dtri_sorted[:, :f])
+            dverts = torch.zeros((b, n_verts, 2), dtype=torch.float32,
+                                 device=fc.device)
+            dverts.index_add_(1, faces.reshape(-1).to(torch.long),
+                              dtri.reshape(b, f * 3, 2))
+            return dverts, None, None, None, None
 
 
 def soft_silhouette_band(verts2d: torch.Tensor, faces: torch.Tensor,

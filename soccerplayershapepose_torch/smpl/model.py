@@ -17,6 +17,7 @@ from soccerplayershapepose_torch import config as cfg
 from soccerplayershapepose_torch.ops.rotations import batch_rodrigues
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.utils import precision  # noqa: F401  (pins TF32 off)
+from soccerplayershapepose_torch.utils import profiling
 
 
 class SMPLOutput(NamedTuple):
@@ -71,7 +72,16 @@ def smpl_forward(assets: SMPLAssets,
         when ``pose2rot``.
       global_orient: (B, 1, 3, 3) rotmats, or (B, 3)/(B, 1, 3) axis-angle.
       transl: optional (B, 3) added to vertices and joints.
+
+    The call is the span ``smpl.forward`` (``utils/profiling.py``).
     """
+    with profiling.span("smpl.forward"):
+        return _smpl_forward(assets, betas, body_pose, global_orient, transl,
+                             pose2rot)
+
+
+def _smpl_forward(assets: SMPLAssets, betas, body_pose, global_orient,
+                  transl, pose2rot: bool) -> SMPLOutput:
     b = betas.shape[0]
     if pose2rot:
         body_rot = batch_rodrigues(body_pose.reshape(b, cfg.NUM_BODY_JOINTS, 3))

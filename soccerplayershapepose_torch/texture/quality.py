@@ -23,7 +23,6 @@ is the JAX package's record):
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -35,9 +34,9 @@ from soccerplayershapepose_torch.pipeline.predict import on_device
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.texture.uv import (
     fuse_atlas_textures, iuv_to_atlas_texture, texel_index)
-from soccerplayershapepose_torch.train.straps import _lap
 from soccerplayershapepose_torch.train.synth import (
     render_crop_batch, sample_crop_draws)
+from soccerplayershapepose_torch.utils import profiling
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, default_device)
 
@@ -118,25 +117,26 @@ def texture_quality(proxynet: ProxyNet, assets: SMPLAssets,
     sums: Optional[dict] = None
     fused = None
     n_crops = 0
-    t = _lap(stage_times, "synthesis", time.perf_counter(), dev)
+    stage = profiling.Stages(stage_times, dev, prefix="texture.")
     for _ in range(n_batches):
-        d = sample_crop_draws(gen, batch, image_wh=wh, image_gen=image_gen)
-        data = render_crop_batch(assets, d, wh, with_image=True)
-        images = downsample(data["image"], grid)
-        iuv_gt = torch.cat([data["part"][..., None].to(torch.float32),
-                            data["uv"]], dim=-1)
-        t = _lap(stage_times, "synthesis", t, dev)
-        out = proxynet(data["image"].permute(0, 3, 1, 2))
-        iuv_pred = decode_iuv(out.part_logits, out.uv)
-        t = _lap(stage_times, "proxynet", t, dev)
-        m = {k: float(v) for k, v in
-             texture_metrics(images, iuv_gt, iuv_pred).items()}
-        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
-        if fused is None:
-            fused = fuse_atlas_textures(
-                *iuv_to_atlas_texture(images, iuv_pred))
-        n_crops += images.shape[0]
-        t = _lap(stage_times, "scatter", t, dev)
+        with stage("synthesis"):
+            d = sample_crop_draws(gen, batch, image_wh=wh,
+                                  image_gen=image_gen)
+            data = render_crop_batch(assets, d, wh, with_image=True)
+            images = downsample(data["image"], grid)
+            iuv_gt = torch.cat([data["part"][..., None].to(torch.float32),
+                                data["uv"]], dim=-1)
+        with stage("proxynet"):
+            out = proxynet(data["image"].permute(0, 3, 1, 2))
+            iuv_pred = decode_iuv(out.part_logits, out.uv)
+        with stage("scatter"):
+            m = {k: float(v) for k, v in
+                 texture_metrics(images, iuv_gt, iuv_pred).items()}
+            sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+            if fused is None:
+                fused = fuse_atlas_textures(
+                    *iuv_to_atlas_texture(images, iuv_pred))
+            n_crops += images.shape[0]
     out = {k: v / n_batches for k, v in sums.items()}
     out.update(n_crops=n_crops, wh=wh, grid=grid, pred_atlas=fused[0],
                pred_atlas_mask=fused[1])

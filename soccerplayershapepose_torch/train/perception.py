@@ -45,7 +45,6 @@ step on the whole batch.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -66,10 +65,10 @@ from soccerplayershapepose_torch.parallel.collectives import (
 from soccerplayershapepose_torch.pipeline.predict import on_device
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.train.optim import Adam
-from soccerplayershapepose_torch.train.straps import _lap
 from soccerplayershapepose_torch.train.synth import (
     render_crop_batch, render_frame_batch, sample_crop_draws,
     sample_frame_draws)
+from soccerplayershapepose_torch.utils import profiling
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, default_device)
 
@@ -298,13 +297,12 @@ def _log(kind: str, i: int, steps: int, losses: dict) -> None:
 def _train_loop(kind: str, state: PerceptionTrainState, step_fn, draw,
                 render, steps: int, log_every: int,
                 stage_times: Optional[dict]) -> PerceptionTrainState:
-    dev = state.device
-    t = _lap(stage_times, "synthesis", time.perf_counter(), dev)
+    stage = profiling.Stages(stage_times, state.device, prefix=f"{kind}.")
     for i in range(steps):
-        batch = render(draw())
-        t = _lap(stage_times, "synthesis", t, dev)
-        state, losses = step_fn(state, batch)
-        t = _lap(stage_times, "step", t, dev)
+        with stage("synthesis"):
+            batch = render(draw())
+        with stage("step"):
+            state, losses = step_fn(state, batch)
         state.history.append(losses)
         if log_every and (i + 1) % log_every == 0:
             _log(kind, i, steps, losses)

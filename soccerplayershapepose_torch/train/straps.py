@@ -30,7 +30,6 @@ NamedTuples and the batch functions are deterministic in those draws.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Iterable, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -58,6 +57,7 @@ from soccerplayershapepose_torch.smpl.model import (
     smpl_forward, smpl_shape_only)
 from soccerplayershapepose_torch.train.synth import (
     CropDraws, draws_to, render_crop_batch, sample_crop_draws)
+from soccerplayershapepose_torch.utils import profiling
 from soccerplayershapepose_torch.utils.precision import (
     DeviceLike, default_device)
 
@@ -417,20 +417,6 @@ def crop_images_u8(image: torch.Tensor) -> torch.Tensor:
     return torch.clamp(image * 255.0, 0, 255).to(torch.uint8)
 
 
-def _lap(times: Optional[dict], stage: str, t0: float,
-         dev: torch.device) -> float:
-    """Add the wall time since ``t0`` to ``times[stage]`` (after the
-    device's queued work) and return the time now; nothing without
-    ``times``."""
-    if times is None:
-        return t0
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t = time.perf_counter()
-    times[stage] = times.get(stage, 0.0) + t - t0
-    return t
-
-
 @torch.no_grad()
 def evaluate_regressor_e2e(regressor: SingleInputRegressor,
                            extractor: ProxyExtractor, assets: SMPLAssets,
@@ -470,44 +456,46 @@ def evaluate_regressor_e2e(regressor: SingleInputRegressor,
     scale = cfg.PROXY_REP_INPUT_WH / float(wh)
     sums: Optional[dict] = None
     n_ok = n_fail = 0
-    t = _lap(stage_times, "synthesis", time.perf_counter(), dev)
+    stage = profiling.Stages(stage_times, dev, prefix="e2e.")
     for d in draws:
-        data = render_crop_batch(assets, d, wh, return_params=True,
-                                 with_image=True)
-        images = crop_images_u8(data["image"])
-        t = _lap(stage_times, "synthesis", t, dev)
-        maps = extractor.forward(images)
-        t = _lap(stage_times, "proxynet", t, dev)
-        results = extractor.pick(*maps)
-        keep = [j for j, r in enumerate(results) if r[0] is not None]
-        n_fail += len(results) - len(keep)
-        t = _lap(stage_times, "extraction", t, dev)
+        with stage("synthesis"):
+            data = render_crop_batch(assets, d, wh, return_params=True,
+                                     with_image=True)
+            images = crop_images_u8(data["image"])
+        with stage("proxynet"):
+            maps = extractor.forward(images)
+        with stage("extraction"):
+            results = extractor.pick(*maps)
+            keep = [j for j, r in enumerate(results) if r[0] is not None]
+            n_fail += len(results) - len(keep)
         if not keep:
             continue
-        n_ok += len(keep)
-        sil = torch.from_numpy(np.stack([results[j][1] for j in keep]))
-        kps = torch.from_numpy(np.stack([results[j][0][:, :2] for j in keep]))
-        iuv = None
-        if regressor.in_channels != 18:
-            # The extractor's IUV is decode_iuv's (part 0..24, U, V
-            # 0..255); /255 is the reference's loaded-PNG scaling. A crop
-            # with no IUV gets zeros.
-            iuv = torch.from_numpy(np.stack([
-                results[j][2].astype(np.float32) / 255.0
-                if results[j][2] is not None
-                else np.zeros((wh, wh, 3), np.float32)
-                for j in keep])).to(dev)
-        proxy = _build_proxy(sil.to(dev), kps.to(dev), wh,
-                             regressor.in_channels, iuv)
-        idx = torch.tensor(keep, device=dev)
-        target_pose = torch.cat([data["global_orient"], data["body_pose"]],
-                                dim=1)[idx]
-        cam_wp, pose6d, betas = regressor(proxy, init)
-        m = regressor_metrics(assets, cam_wp, pose6d, betas, target_pose,
-                              data["betas"][idx], data["joints2d"][idx] * scale)
-        m = {k: float(v) * len(keep) for k, v in m.items()}
-        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
-        t = _lap(stage_times, "regressor", t, dev)
+        with stage("regressor"):
+            n_ok += len(keep)
+            sil = torch.from_numpy(np.stack([results[j][1] for j in keep]))
+            kps = torch.from_numpy(np.stack([results[j][0][:, :2]
+                                             for j in keep]))
+            iuv = None
+            if regressor.in_channels != 18:
+                # The extractor's IUV is decode_iuv's (part 0..24, U, V
+                # 0..255); /255 is the reference's loaded-PNG scaling. A
+                # crop with no IUV gets zeros.
+                iuv = torch.from_numpy(np.stack([
+                    results[j][2].astype(np.float32) / 255.0
+                    if results[j][2] is not None
+                    else np.zeros((wh, wh, 3), np.float32)
+                    for j in keep])).to(dev)
+            proxy = _build_proxy(sil.to(dev), kps.to(dev), wh,
+                                 regressor.in_channels, iuv)
+            idx = torch.tensor(keep, device=dev)
+            target_pose = torch.cat([data["global_orient"],
+                                     data["body_pose"]], dim=1)[idx]
+            cam_wp, pose6d, betas = regressor(proxy, init)
+            m = regressor_metrics(assets, cam_wp, pose6d, betas, target_pose,
+                                  data["betas"][idx],
+                                  data["joints2d"][idx] * scale)
+            m = {k: float(v) * len(keep) for k, v in m.items()}
+            sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
     if sums is None:
         return {"extraction_failures": n_fail, "n_images": 0, "eval_wh": wh}
     out = {k: v / n_ok for k, v in sums.items()}

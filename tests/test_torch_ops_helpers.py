@@ -10,13 +10,13 @@ profiling helpers on the CPU.
   ``weak_perspective_to_translation``), ``normalise_keypoints`` (inverting
   ``undo_keypoint_normalisation``) and ``check_joints2d_visibility`` (the
   bounds included) within 1e-6 or equal;
-* ``utils/profiling.py``: ``StepTimer`` accumulates and summarises;
-  ``trace`` writes a Chrome trace holding an ``annotate`` span.
+* ``utils/profiling.py``: ``trace`` writes a Chrome trace holding a
+  span, which its recorder holds too (tests/test_torch_tracing.py tests
+  the recorder).
 """
 
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -108,26 +108,13 @@ def test_camera_helpers_match_jax():
     assert bool(vis[0, 0]) and not bool(vis[0, 1])
 
 
-def test_step_timer_accumulates():
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer.stage("a"):
-            time.sleep(0.002)
-    with timer.stage("b"):
-        pass
-    assert timer.counts == {"a": 3, "b": 1}
-    assert timer.totals["a"] >= 0.006
-    lines = timer.summary().splitlines()
-    assert lines[0].split() == ["stage", "total_s", "count", "mean_ms"]
-    assert lines[1].split()[0] == "a" and lines[2].split()[0] == "b"
-
-
 def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     log_dir = str(tmp_path / "trace")
-    with profiling.trace(log_dir) as prof:
-        with profiling.annotate("port_span"):
+    with profiling.trace(log_dir) as rec:
+        with profiling.span("port_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "port_span" for e in events)
-    assert any(e.key == "port_span" for e in prof.key_averages())
+    assert rec.summary()["spans"]["port_span"]["count"] == 1
+    assert profiling.span("after") is profiling.span("after.too")
