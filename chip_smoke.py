@@ -8,7 +8,9 @@ call and drives the port's two paths on the card:
 
 * the single-view fit of the 22-player bench scene (512^2 targets, 256^2
   render, the full synthetic SMPL mesh, random init from seed 0), which
-  runs the band rasterizer K1/K2;
+  runs the band rasterizer K1/K2, timed through the loop's CUDA graph and
+  through the eager loop, the two held bit for bit to each other under
+  deterministic algorithms;
 * the held-out synthetic evaluation of the committed 18-channel regressor
   (``weights/regressor_18ch_f16.npz``): 4 batches of 16 crops at 512^2,
   two SMPL bodies per crop, two z-buffer passes (K3) per batch, ResNet-18 +
@@ -1486,8 +1488,46 @@ def main() -> int:
         check(v.device.type == dev.type
               and bool(torch.isfinite(v.float()).all()),
               "%s is not finite on the card" % k)
+    # The same fit on the eager loop, timed; then both loops under
+    # deterministic algorithms (the backward's scatters add atomically, so
+    # without them two eager runs differ too), bit for bit.
+    from unittest import mock
+
+    from soccerplayershapepose_torch.fit import engine as fit_engine
+
+    def eager_loop():
+        return mock.patch.object(fit_engine, "graph_engages",
+                                 lambda *a: False)
+
+    with eager_loop():
+        single_view_fit(assets, init, sil, j2d, warm, device=dev)
+        torch.cuda.synchronize()
+        t_eager = time.time()
+        res_eager = single_view_fit(assets, init, sil, j2d, fit_cfg,
+                                    device=dev)
+        torch.cuda.synchronize()
+        eager_dt = time.time() - t_eager
+    with deterministic():
+        got = _fit_fields(single_view_fit(assets, init, sil, j2d, fit_cfg,
+                                          device=dev))
+        with eager_loop():
+            want = _fit_fields(single_view_fit(assets, init, sil, j2d,
+                                               fit_cfg, device=dev))
+    graph_gap = {k: float((v.float() - want[k].float()).abs().max())
+                 for k, v in got.items()}
+    graph_bit_equal = all(torch.equal(v, want[k]) for k, v in got.items())
+    check(graph_bit_equal, "the graph and the eager loop differ under "
+          "deterministic algorithms: %s" % graph_gap)
+    default_gap = {k: float((getattr(res, k).float()
+                             - getattr(res_eager, k).float()).abs().max())
+                   for k in ("body_pose", "betas", "cam_wp", "silh_iou")}
     emit("fit", t, b=FIT_BATCH, proxy_wh=PROXY_WH, render_wh=FIT_RENDER_WH,
          iters=FIT_ITERS, iters_reduced_from=cfg.SINGLE_VIEW_ITERS,
+         graph_ms_per_iter=round(dt / FIT_ITERS * 1e3, 3),
+         eager_wall_s=round(eager_dt, 4),
+         eager_ms_per_iter=round(eager_dt / FIT_ITERS * 1e3, 3),
+         graph_eager_bit_equal_deterministic=graph_bit_equal,
+         graph_eager_gap_default=default_gap,
          wall_s=round(dt, 4), players_per_s=round(FIT_BATCH / dt, 3),
          init_iou=float(res.init_silh_iou.mean()),
          best_iou=float(res.silh_iou.mean()),

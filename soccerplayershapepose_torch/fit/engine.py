@@ -13,10 +13,15 @@ bookkeeping, batched over players. The reference's quirks are kept:
   the ones that iterate was evaluated at, before its Adam update;
 * the reported joint error truncates the predicted keypoints to integers.
 
-The loop is a plain Python loop on the device of its inputs. It renders the
-silhouette once per iteration, so on CUDA each of the two band kernels
-launches once per iteration. ``iters_per_call`` (a TPU-worker workaround in
-the JAX package) is accepted and has no effect.
+The loop runs on the device of its inputs. It renders the silhouette once
+per iteration, so on CUDA each of the two band kernels launches once per
+iteration. On the CPU, and on CUDA where :func:`graph_engages` says no, it
+is a plain Python loop. Otherwise the first iteration runs eagerly and the
+rest replay one CUDA graph of the same iteration (:class:`_GraphPlan`),
+captured once for a plan of inputs and kept for later calls: one launch an
+iteration where the eager loop makes hundreds, so the card, not the host,
+sets the pace. ``iters_per_call`` (a TPU-worker workaround in the JAX
+package) is accepted and has no effect.
 
 With ``mesh`` (``parallel/mesh.py``) every rank gets the global batch and
 fits its slice of the rows (and groups) over the data axis; the kernels
@@ -40,6 +45,7 @@ stay local.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -55,6 +61,7 @@ from soccerplayershapepose_torch.ops.segmentation import (
 from soccerplayershapepose_torch.parallel.collectives import (
     all_reduce_sum, data_parallel, data_sum, gather_dict_rows)
 from soccerplayershapepose_torch.parallel.mesh import data_sharding
+from soccerplayershapepose_torch.render import band_raster
 from soccerplayershapepose_torch.render.softras import render_silhouette
 from soccerplayershapepose_torch.smpl.assets import SMPLAssets
 from soccerplayershapepose_torch.smpl.model import smpl_forward
@@ -137,6 +144,14 @@ def downsample_target(target_silhouette: torch.Tensor,
         *lead, render_wh, step, render_wh, step).mean(dim=(-3, -1))
 
 
+@functools.lru_cache(maxsize=None)
+def _keypoint_index(device: torch.device) -> torch.Tensor:
+    """``SMPL_TO_KPRCNN_MAP`` on ``device``, built once: a copy from the
+    host in every iteration would make the host wait, and a CUDA graph
+    cannot hold one. Read-only."""
+    return torch.as_tensor(cfg.SMPL_TO_KPRCNN_MAP, device=device)
+
+
 def evaluate_fit(assets: SMPLAssets, body_pose, global_orient, betas, cam_wp,
                  target_silhouette, target_joints2d, fit_cfg: FitConfig):
     """One forward evaluation: loss inputs and metrics.
@@ -146,8 +161,8 @@ def evaluate_fit(assets: SMPLAssets, body_pose, global_orient, betas, cam_wp,
     vertices.
     """
     out = smpl_forward(assets, betas, body_pose, global_orient)
-    kp = torch.as_tensor(cfg.SMPL_TO_KPRCNN_MAP, device=betas.device)
-    j2d = orthographic_project(out.joints, cam_wp)[:, kp]
+    j2d = orthographic_project(out.joints, cam_wp)[:, _keypoint_index(
+        betas.device)]
     j2d = undo_keypoint_normalisation(j2d, fit_cfg.proxy_wh)
     translation = weak_perspective_to_translation(
         cam_wp, fit_cfg.focal_length, fit_cfg.proxy_wh)
@@ -280,38 +295,244 @@ def _shard_fit(mesh, rows, groups, group_size, fit_cfg, trainable, frozen,
     return trainable, frozen, tensors, j2d, shares
 
 
-def _select_best(best: dict, params: dict, ev: dict, target_joints2d,
-                 it: int, reduce_groups: Callable, groups: int,
-                 fit_cfg: FitConfig) -> dict:
-    """The best-iterate bookkeeping after iteration ``it``: a group keeps
-    the iterate iff its every tracked metric is ≤ its best so far."""
-    ev = {k: v.detach() for k, v in ev.items()}
-    j2d_l2 = reduce_groups(torch.mean(torch.linalg.vector_norm(
-        ev["pred_j2d"] - target_joints2d[..., :2], dim=-1), dim=-1))
-    bce = (reduce_groups(ev["bce_score"]) if fit_cfg.use_silhouette
-           else torch.zeros_like(j2d_l2))
-    iou = reduce_groups(ev["iou"])
-    jerr = reduce_groups(ev["joint_err"])
-    improve = (j2d_l2 <= best["m0"]) & (bce <= best["m1"])
-    if fit_cfg.save_every:
-        improve = torch.ones_like(improve)
+class _Loop:
+    """One fit's state: what an iteration reads (assets, targets, mask,
+    weights, frozen tensors) and writes (the trainable leaves, Adam's state,
+    the best-iterate record and the iteration counter, all in place). The
+    eager loop builds one a call on the caller's tensors; a graph plan
+    keeps one on buffers of its own and reloads it (:meth:`load`)."""
 
-    def select(new, old):
-        return torch.where(
-            improve.reshape((groups,) + (1,) * (new.dim() - 1)), new, old)
+    def __init__(self, assets, trainable, frozen, assemble,
+                 target_silhouette, target_joints2d, mask, metric_weights,
+                 fit_cfg: FitConfig, group_size: int,
+                 shares: _Shares = _Shares(), group=None):
+        dev = target_joints2d.device
+        self.assets, self.frozen, self.assemble = assets, frozen, assemble
+        self.target_silhouette = target_silhouette
+        self.target_joints2d = target_joints2d
+        self.mask, self.metric_weights = mask, metric_weights
+        self.fit_cfg, self.group_size = fit_cfg, group_size
+        self.shares, self.group = shares, group
+        self.groups = target_joints2d.shape[0] // group_size
+        losses_on, self.log_vars = make_loss_state(fit_cfg.use_silhouette,
+                                                   device=dev)
+        self.loss_cfg = MultiTaskLossConfig(losses_on=losses_on)
+        self.params = {k: v.detach().clone().requires_grad_(True)
+                       for k, v in trainable.items()}
+        # Capturable on CUDA, so that the eager and the replayed loop run
+        # the same kernels (the step count stays on the card).
+        self.opt = torch.optim.Adam(list(self.params.values()),
+                                    lr=fit_cfg.lr, betas=(0.9, 0.999),
+                                    eps=1e-8, capturable=dev.type == "cuda")
 
-    return {
-        "m0": torch.where(improve, j2d_l2, best["m0"]),
-        "m1": torch.where(improve, bce, best["m1"]),
-        "iou": torch.where(improve, iou, best["iou"]),
-        "joint_err": torch.where(improve, jerr, best["joint_err"]),
-        "iter": torch.where(improve, torch.full_like(best["iter"], it + 1),
-                            best["iter"]),
-        "params": {k: select(params[k].detach(), best["params"][k])
-                   for k in params},
-        "init_iou": iou if it == 0 else best["init_iou"],
-        "init_joint_err": jerr if it == 0 else best["init_joint_err"],
-    }
+        def per_group(dtype=torch.float32):
+            return torch.empty((self.groups,), dtype=dtype, device=dev)
+
+        self.best = {"m0": per_group(), "m1": per_group(),
+                     "iou": per_group(), "joint_err": per_group(),
+                     "iter": per_group(torch.int32),
+                     "params": {k: torch.empty_like(v)
+                                for k, v in self.params.items()},
+                     "init_iou": per_group(), "init_joint_err": per_group()}
+        self.count = torch.empty((), dtype=torch.int32, device=dev)
+        self.snaps = [] if fit_cfg.snapshot_every else None
+        self._reset()
+
+    def _reset(self) -> None:
+        """The state of a fresh fit from the current parameters."""
+        best = self.best
+        with torch.no_grad():
+            for k in ("m0", "m1"):
+                best[k].fill_(float("inf"))
+            for k in ("iou", "joint_err", "iter", "init_iou",
+                      "init_joint_err"):
+                best[k].zero_()
+            for k, v in self.params.items():
+                best["params"][k].copy_(v)
+            self.count.zero_()
+            # Adam's state (step, moments) is all zeros at the start.
+            for state in self.opt.state.values():
+                for t in state.values():
+                    t.zero_()
+
+    def load(self, trainable, frozen, target_silhouette, target_joints2d,
+             mask, metric_weights) -> None:
+        """Copy a call's inputs into this loop's buffers and reset it."""
+        with torch.no_grad():
+            for k, v in trainable.items():
+                self.params[k].copy_(v)
+            for k, v in frozen.items():
+                self.frozen[k].copy_(v)
+            for dst, src in ((self.target_silhouette, target_silhouette),
+                             (self.target_joints2d, target_joints2d),
+                             (self.mask, mask),
+                             (self.metric_weights, metric_weights)):
+                dst.copy_(src)
+        self._reset()
+
+    def reduce_groups(self, x):
+        if self.group_size == 1:
+            return x
+        w = self.metric_weights.reshape(self.groups, self.group_size)
+        xw = (x * self.metric_weights).reshape(self.groups, self.group_size)
+        return torch.sum(xw, dim=1) / torch.clamp(torch.sum(w, dim=1),
+                                                  min=1.0)
+
+    def select(self, ev: dict, first: bool) -> None:
+        """The best-iterate bookkeeping after an iteration, in place: a
+        group keeps the iterate iff its every tracked metric is ≤ its best
+        so far. The counter advances to the iteration's 1-based number;
+        ``first`` records the initial metrics."""
+        best, reduce = self.best, self.reduce_groups
+        ev = {k: v.detach() for k, v in ev.items()}
+        j2d_l2 = reduce(torch.mean(torch.linalg.vector_norm(
+            ev["pred_j2d"] - self.target_joints2d[..., :2], dim=-1), dim=-1))
+        bce = (reduce(ev["bce_score"]) if self.fit_cfg.use_silhouette
+               else torch.zeros_like(j2d_l2))
+        iou = reduce(ev["iou"])
+        jerr = reduce(ev["joint_err"])
+        improve = (j2d_l2 <= best["m0"]) & (bce <= best["m1"])
+        if self.fit_cfg.save_every:
+            improve = torch.ones_like(improve)
+        self.count += 1
+
+        def keep(old, new):
+            cond = improve.reshape((self.groups,) + (1,) * (old.dim() - 1))
+            torch.where(cond, new, old, out=old)
+
+        for k, new in (("m0", j2d_l2), ("m1", bce), ("iou", iou),
+                       ("joint_err", jerr), ("iter", self.count)):
+            keep(best[k], new)
+        for k, v in self.params.items():
+            keep(best["params"][k], v.detach())
+        if first:
+            best["init_iou"].copy_(iou)
+            best["init_joint_err"].copy_(jerr)
+
+    def iterate(self, it: int) -> None:
+        """Iteration ``it``: SMPL, projection, render and loss, backward,
+        the best-iterate choice, Adam's step. Run eagerly, or captured
+        once into the plan's graph and replayed."""
+        with profiling.span("fit.forward"), data_parallel(self.group):
+            total, ev = _loss(self.assets, self.params, self.frozen,
+                              self.assemble, self.target_silhouette,
+                              self.target_joints2d, self.mask, self.log_vars,
+                              self.loss_cfg, self.fit_cfg, it, self.shares)
+        self.opt.zero_grad(set_to_none=True)
+        with profiling.span("fit.backward"):
+            total.backward()
+        with profiling.span("fit.select"), torch.no_grad():
+            self.select(ev, it == 0)
+            if self.snaps is not None:
+                self.snaps.append({k: v.detach().clone()
+                                   for k, v in self.params.items()})
+        with profiling.span("fit.step"):
+            self.opt.step()
+
+
+def graph_engages(device, mesh, fit_cfg: FitConfig) -> bool:
+    """Whether :func:`run_fit_loop` replays its iteration as a CUDA graph:
+    on CUDA tensors, without a mesh (the sharded fits' collectives stay
+    eager), without snapshots, without the silhouette warm-up (its scale
+    changes with the iteration), and with at least two iterations (the
+    first runs eagerly)."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and fit_cfg.snapshot_every is None
+            and fit_cfg.silh_warmup_iters == 0 and fit_cfg.iters >= 2)
+
+
+def _layout(x: torch.Tensor) -> tuple:
+    return tuple(x.shape), x.stride(), x.dtype
+
+
+def plan_key(assets: SMPLAssets, trainable: dict, frozen: dict,
+             assemble: Callable, target_silhouette, target_joints2d, mask,
+             metric_weights, fit_cfg: FitConfig, group_size: int) -> tuple:
+    """What a captured iteration depends on: the device, the layouts of
+    every tensor it reads (rows included), ``group_size``, the assembler,
+    every ``FitConfig`` field but ``iters``, the assets' tensors (by
+    identity: the plan holds them), and the global switches that choose
+    its kernels (deterministic algorithms, TF32 matrix products)."""
+    tensors = [getattr(assets, f.name) for f in dataclasses.fields(assets)
+               if f.name != "parents"]
+    switches = (torch.are_deterministic_algorithms_enabled(),
+                torch.backends.cuda.matmul.allow_tf32)
+    return (target_joints2d.device, group_size, assemble, switches,
+            dataclasses.replace(fit_cfg, iters=0),
+            tuple((k, _layout(v)) for k, v in trainable.items()),
+            tuple((k, _layout(v)) for k, v in frozen.items()),
+            tuple(_layout(x) for x in (target_silhouette, target_joints2d,
+                                       mask, metric_weights)),
+            tuple(id(t) for t in tensors), tuple(assets.parents))
+
+
+def _buffer(x: torch.Tensor) -> torch.Tensor:
+    """A tensor of ``x``'s shape, strides and type, for :meth:`_Loop.load`
+    to fill."""
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                               device=x.device)
+
+
+def _capture(fn: Callable):
+    """A CUDA graph of what ``fn`` launches (captured, not run) and the
+    K1/K2 launches each of its replays makes."""
+    graph = torch.cuda.CUDAGraph()
+    with band_raster.graph_launches() as launches, torch.cuda.graph(graph):
+        fn()
+    return graph, launches
+
+
+class _GraphPlan:
+    """A fit loop whose iteration is captured once as a CUDA graph and
+    replayed: iteration 0 runs eagerly (it records the initial metrics and
+    creates Adam's state), the first call captures iteration 1 on the
+    plan's buffers, and every later iteration of every call through the
+    plan replays it. Replays add the K1/K2 launches the graph holds to
+    ``band_raster.LAUNCHES``."""
+
+    def __init__(self, key: tuple, loop: _Loop):
+        self.key, self.loop = key, loop
+        self.graph, self.launches = None, {}
+
+    def run(self, iters: int) -> None:
+        with profiling.span("fit.iter"):
+            self.loop.iterate(0)
+        if self.graph is None:
+            self.graph, self.launches = _capture(
+                lambda: self.loop.iterate(1))
+            profiling.count("fit.graph_captures", 1)
+        for _ in range(1, iters):
+            with profiling.span("fit.iter"), profiling.span("fit.replay"):
+                self.graph.replay()
+                band_raster.add_launches(self.launches)
+        profiling.count("fit.graph_iters", iters - 1)
+
+
+# The last plan only, so that the graphs' memory stays bounded.
+_PLAN: Optional[_GraphPlan] = None
+
+
+def _replayed_fit(assets, trainable, frozen, assemble, target_silhouette,
+                  target_joints2d, mask, metric_weights, fit_cfg,
+                  group_size) -> dict:
+    """The fit through the plan of these inputs (captured on first use;
+    a plan of other inputs is dropped first). Returns a copy of its best
+    dict."""
+    global _PLAN
+    inputs = (target_silhouette, target_joints2d, mask, metric_weights)
+    key = plan_key(assets, trainable, frozen, assemble, *inputs, fit_cfg,
+                   group_size)
+    if _PLAN is None or _PLAN.key != key:
+        _PLAN = None
+        loop = _Loop(assets, trainable,
+                     {k: _buffer(v) for k, v in frozen.items()}, assemble,
+                     *(_buffer(x) for x in inputs), fit_cfg, group_size)
+        _PLAN = _GraphPlan(key, loop)
+    _PLAN.loop.load(trainable, frozen, *inputs)
+    _PLAN.run(fit_cfg.iters)
+    best = _PLAN.loop.best
+    return {k: ({p: t.clone() for p, t in v.items()} if k == "params"
+                else v.clone()) for k, v in best.items()}
 
 
 def run_fit_loop(assets: SMPLAssets,
@@ -341,6 +562,15 @@ def run_fit_loop(assets: SMPLAssets,
         Rows must be a multiple of the data axis, and so must the groups
         where ``group_size > 1``; pad with ``mask``.
 
+    Where :func:`graph_engages`, the iterations after the first replay one
+    CUDA graph, captured once per plan (:class:`_GraphPlan`) and reused by
+    later calls with the same :func:`plan_key`. It runs the eager loop's
+    kernels in the eager loop's order, so under deterministic algorithms
+    the two agree bit for bit (without them the atomic adds of the
+    backward's scatters make any two runs differ at rounding level). Each
+    call counts its replayed iterations in the counter ``fit.graph_iters``
+    (0 in the eager loop), each capture in ``fit.graph_captures``.
+
     Returns:
       (best params dict, dict of best metrics with (groups,) shapes), for
       every row on every rank.
@@ -352,57 +582,31 @@ def run_fit_loop(assets: SMPLAssets,
         mask = torch.ones((rows,), device=dev)
     if metric_weights is None:
         metric_weights = torch.ones((rows,), device=dev)
+    if graph_engages(dev, mesh, fit_cfg):
+        best = _replayed_fit(assets, trainable, frozen, assemble,
+                             target_silhouette, target_joints2d, mask,
+                             metric_weights, fit_cfg, group_size)
+        return best["params"], best
     shares, group = _Shares(), None
     if mesh is not None:
         trainable, frozen, tensors, target_joints2d, shares = _shard_fit(
             mesh, rows, groups, group_size, fit_cfg, trainable, frozen,
             [mask, metric_weights, target_silhouette], target_joints2d)
         mask, metric_weights, target_silhouette = tensors
-        rows, groups = rows // mesh.n_data, groups // mesh.n_data
         group = mesh.data_group
 
-    losses_on, log_vars = make_loss_state(fit_cfg.use_silhouette, device=dev)
-    loss_cfg = MultiTaskLossConfig(losses_on=losses_on)
-    params = {k: v.detach().clone().requires_grad_(True)
-              for k, v in trainable.items()}
-    opt = torch.optim.Adam(list(params.values()), lr=fit_cfg.lr,
-                           betas=(0.9, 0.999), eps=1e-8)
-
-    def reduce_groups(x):
-        if group_size == 1:
-            return x
-        xw = (x * metric_weights).reshape(groups, group_size)
-        w = metric_weights.reshape(groups, group_size)
-        return torch.sum(xw, dim=1) / torch.clamp(torch.sum(w, dim=1), min=1.0)
-
-    inf = torch.full((groups,), float("inf"), device=dev)
-    zeros = torch.zeros((groups,), device=dev)
-    best = {"m0": inf, "m1": inf, "iou": zeros, "joint_err": zeros,
-            "iter": torch.zeros((groups,), dtype=torch.int32, device=dev),
-            "params": {k: v.detach().clone() for k, v in params.items()},
-            "init_iou": zeros, "init_joint_err": zeros}
-    snaps = []
+    loop = _Loop(assets, trainable, frozen, assemble, target_silhouette,
+                 target_joints2d, mask, metric_weights, fit_cfg, group_size,
+                 shares, group)
     for it in range(fit_cfg.iters):
         with profiling.span("fit.iter"):
-            with profiling.span("fit.forward"), data_parallel(group):
-                total, ev = _loss(assets, params, frozen, assemble,
-                                  target_silhouette, target_joints2d, mask,
-                                  log_vars, loss_cfg, fit_cfg, it, shares)
-            opt.zero_grad(set_to_none=True)
-            with profiling.span("fit.backward"):
-                total.backward()
-            with profiling.span("fit.select"), torch.no_grad():
-                best = _select_best(best, params, ev, target_joints2d, it,
-                                    reduce_groups, groups, fit_cfg)
-                if fit_cfg.snapshot_every:
-                    snaps.append({k: v.detach().clone()
-                                  for k, v in params.items()})
-            with profiling.span("fit.step"):
-                opt.step()
-    if fit_cfg.snapshot_every:
+            loop.iterate(it)
+    profiling.count("fit.graph_iters", 0)
+    best = loop.best
+    if loop.snaps is not None:
         best["snapshots"] = {
-            k: torch.stack([s[k] for s in snaps])[::fit_cfg.snapshot_every]
-            for k in params}
+            k: torch.stack([s[k] for s in loop.snaps])[::fit_cfg.snapshot_every]
+            for k in loop.params}
     if mesh is not None:
         best = _gather_best(best, group)
     return best["params"], best

@@ -9,6 +9,7 @@ translation uses ``t_z = 2f / (res·s + 1e-9)`` (and back, ``s = 2f /
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -46,6 +47,15 @@ def get_intrinsics_matrix(img_width: int, img_height: int, focal_length: float,
                          [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _square_intrinsics(img_wh: int, focal_length: float,
+                       device: torch.device) -> torch.Tensor:
+    """:func:`get_intrinsics_matrix` of a square image, built once per
+    device: a copy from the host in every projection would make the host
+    wait, and a CUDA graph cannot hold one. Read-only."""
+    return get_intrinsics_matrix(img_wh, img_wh, focal_length, device=device)
+
+
 def perspective_project(points: torch.Tensor,
                         rotation: Optional[torch.Tensor],
                         translation: torch.Tensor,
@@ -59,8 +69,7 @@ def perspective_project(points: torch.Tensor,
     ``img_wh``.
     """
     if cam_k is None:
-        cam_k = get_intrinsics_matrix(img_wh, img_wh, focal_length,
-                                      device=points.device)
+        cam_k = _square_intrinsics(img_wh, focal_length, points.device)
     if rotation is not None:
         points = torch.einsum("bij,bkj->bki", rotation, points)
     points = points + translation[:, None, :]

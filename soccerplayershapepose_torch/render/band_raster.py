@@ -29,8 +29,9 @@ face.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
@@ -47,13 +48,35 @@ REC = 20
 BOX = slice(16, 20)
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
-# adds one where it launches its kernel and nowhere else.
+# adds one where it launches its kernel and nowhere else, and a replay of a
+# CUDA graph adds the launches the graph holds (graph_launches).
 LAUNCHES = {"band_raster_fwd": 0, "band_raster_bwd": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def graph_launches() -> Iterator[dict]:
+    """Around the capture of a CUDA graph, which records launches and runs
+    none: the block's launches leave ``LAUNCHES`` and go to the dict it
+    yields, the launches each replay makes (:func:`add_launches`)."""
+    before = dict(LAUNCHES)
+    held = {}
+    try:
+        yield held
+    finally:
+        for k in LAUNCHES:
+            held[k] = LAUNCHES[k] - before[k]
+            LAUNCHES[k] = before[k]
+
+
+def add_launches(held: dict) -> None:
+    """Count a replay of a graph that holds ``held`` launches."""
+    for k, n in held.items():
+        LAUNCHES[k] += n
 
 
 # Support of a face in units of σ_px: beyond d² = 20.1·σ_px the coverage

@@ -9,6 +9,7 @@ its inputs; every contraction is fp32 (TF32 is pinned off in
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,6 +28,19 @@ class SMPLOutput(NamedTuple):
     v_shaped: torch.Tensor      # (B, 6890, 3)
 
 
+@functools.lru_cache(maxsize=None)
+def _chain_constants(parents: tuple, dtype: torch.dtype,
+                     device: torch.device):
+    """The parent index (long) and the homogeneous row [0, 0, 0, 1] of the
+    kinematic chain, built once per device: a copy from the host in every
+    call would make the host wait, and a CUDA graph cannot hold one.
+    Read-only."""
+    parent_idx = torch.as_tensor(parents[1:], dtype=torch.long,
+                                 device=device)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    return parent_idx, bottom
+
+
 def _kinematic_chain(rotmats: torch.Tensor, joints: torch.Tensor, parents):
     """Forward kinematics over the static tree.
 
@@ -34,12 +48,11 @@ def _kinematic_chain(rotmats: torch.Tensor, joints: torch.Tensor, parents):
     with the rest-pose joint locations already subtracted.
     """
     b = rotmats.shape[0]
-    parent_idx = torch.as_tensor(parents[1:], dtype=torch.long,
-                                 device=joints.device)
+    parent_idx, bottom = _chain_constants(tuple(parents), rotmats.dtype,
+                                          rotmats.device)
     rel = joints - torch.cat([torch.zeros_like(joints[:, :1]),
                               joints[:, parent_idx]], dim=1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rotmats.dtype,
-                          device=rotmats.device).expand(b, 1, 4)
+    bottom = bottom.expand(b, 1, 4)
 
     def make44(r, t):
         return torch.cat([torch.cat([r, t[..., None]], dim=-1), bottom], dim=-2)
